@@ -6,17 +6,33 @@
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. device   a CUDA device is required (no CPU path); its name and
               `nvidia-smi` name/power limit
-  2. build    nvcc builds the three kernels from csrc/ (sm_90a)
+  2. build    nvcc builds the four kernels from csrc/ (sm_90a), one nvcc per
+              source, all at once
   3. kernels  each kernel against its plain PyTorch version on the card, on
-              the same inputs at the main path's shapes: exact equality
-  4. parity   keyframe_step on CUDA vs on the CPU from the same state, for 4
-              synthetic keyframes: every int and bool field equal
-  5. main     the port's CLI on synthetic:20 on the card: launch counts from
-              that run, output checked against the CPU run of the same input,
-              then one steady-state step under sync-debug mode "error"
-  6. timing   median keyframe step time, and each kernel beside its plain
-              version (CUDA events, median of 30 launches)
-Then the kernels JSON line and, last, the result line.
+              the same inputs, at every shape the paths give it: FAST on
+              uint8 and float32 frames and a pyramid level; patches for ORB,
+              BRISK, FREAK and AKAZE; Hamming at 8 and 16 words; the window
+              gather's five cases. Exact equality
+  4. parity   keyframe_step on CUDA vs on the CPU from the same state: the
+              default ORB slice for 4 synthetic keyframes, then BRISK, FREAK,
+              AKAZE and the 3-level ORB pyramid for 2 each (640x480, K=512,
+              W=10): every int and bool field equal
+  5. main     each path driven once with the launch counts set to 0 just
+              before and read just after: the port's CLI on synthetic:20
+              (ORB) and on synthetic:8 with --descriptor_family brisk, freak
+              and akaze; the ORB pyramid through Frontend on 8 frames; the
+              window-gather entry point (ops/kernel_variants) at the TPU
+              probe's shapes. Each frontend run is checked against the CPU
+              run of the same input; then one steady-state step per
+              configuration under sync-debug mode "error"
+  6. timing   median keyframe step time (synced, and host enqueue) per
+              configuration with one profiled step's launches and device
+              time (torch.profiler), and each kernel
+              at each shape beside its plain version, one PyTorch call that
+              computes the same function where there is one, and its bound
+              (CUDA events, median of 30 launches)
+Then a JSON line of every kernel shape's numbers, the kernels JSON line and,
+last, the result line.
 """
 
 from __future__ import annotations
@@ -32,11 +48,19 @@ import time
 import numpy as np
 
 NUM_PARITY_KEYFRAMES = 4
+NUM_FAMILY_PARITY_KEYFRAMES = 2
 MAIN_INPUT = "synthetic:20"
+FAMILY_INPUT = "synthetic:8"
+FAMILY_FRAMES = 8
 TIMING_KEYFRAMES = 20
 TIMING_RUNS = 30
 
-# Kernel name -> (CUDA source, the TPU kernel it replaces).
+# The H100's published peaks (NVIDIA data sheet, SXM, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+
+# Kernel name -> (CUDA source, the TPU kernel(s) it replaces).
 KERNELS = {
     "fast_scores_nms": (
         "vision_slam_frontend_tpu_torch/csrc/fast_nms.cu",
@@ -48,8 +72,28 @@ KERNELS = {
     ),
     "hamming_top2": (
         "vision_slam_frontend_tpu_torch/csrc/hamming_top2.cu",
-        "vision_slam_frontend_tpu/ops/pallas_kernels.py:193",
+        "vision_slam_frontend_tpu/ops/pallas_kernels.py:193 and vision_slam_frontend_tpu/ops/pallas_kernels.py:89",
     ),
+    "patch_windows": (
+        "vision_slam_frontend_tpu_torch/csrc/patch_windows.cu",
+        "probe_kernel_variants.py:22",
+    ),
+}
+# The shape of each kernel that the kernels line reports (the others are on
+# the line before it).
+PRIMARY_SHAPE = {
+    "fast_scores_nms": "640x480 u8",
+    "extract_patches": "ORB K=512 C=1 ps=31 f16",
+    "hamming_top2": "window 5120x512 words=8",
+    "patch_windows": "E1 dyn-sublane, 32 rows, blk64",
+}
+# Frontend configurations: name -> FrontendConfig overrides.
+CONFIGS = {
+    "orb": {},
+    "brisk": {"descriptor_family": "brisk"},
+    "freak": {"descriptor_family": "freak"},
+    "akaze": {"descriptor_family": "akaze"},
+    "orb_pyramid": {"num_levels": 3},
 }
 
 
@@ -96,6 +140,13 @@ def synthetic_frames(n: int):
     return list(generate_sequence(num_frames=n, step=0.25, rig=SyntheticRig()))
 
 
+def make_config(name: str):
+    from vision_slam_frontend_tpu_torch.frontend.config import FrontendConfig
+    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
+
+    return FrontendConfig(calib=SyntheticRig().calib(), fast_threshold=12.0, **CONFIGS[name])
+
+
 def frame_poses(frames):
     """Per-frame odometry world pose relative to frame 0 (the Frontend's rule)."""
     from vision_slam_frontend_tpu_torch.utils import np_geom
@@ -117,45 +168,63 @@ def u8(img: np.ndarray) -> np.ndarray:
 
 def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
     """Median device time of one call of `fn`, by CUDA events, after warm-up."""
+    from vision_slam_frontend_tpu_torch.ops.kernel_variants import cuda_ms as event_ms
+
+    return event_ms(fn, runs)
+
+
+def bound(bytes_moved: float, ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the operations over their peak rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def covered_pixels(ys, xs, rows: int, cols: int, H: int, W: int) -> int:
+    """Distinct image pixels inside rows x cols windows at (ys, xs): what a
+    gather of those windows must read at least once."""
     import torch
 
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    dev = ys.device
+    r = ys.long()[:, None, None] + torch.arange(rows, device=dev)[None, :, None]
+    c = xs.long()[:, None, None] + torch.arange(cols, device=dev)[None, None, :]
+    inside = (r >= 0) & (r < H) & (c >= 0) & (c < W)
+    mask = torch.zeros(H * W, dtype=torch.bool, device=dev)
+    mask[(r.clamp(0, H - 1) * W + c.clamp(0, W - 1))[inside]] = True
+    return int(mask.sum())
 
 
-def phase_kernels(ck, frames, dev):
-    """Each kernel vs its plain version on the card; returns max errors."""
+# ---------------------------------------------------------------------------
+# Kernel cases: every shape the paths give each kernel
+# ---------------------------------------------------------------------------
+
+
+def kernel_cases(ck, frames, dev):
+    """[{kernel, shape, kernel fn, plain fn, library fn or None, bound_ms,
+    bound_by}] at the main paths' shapes, on the card."""
     import torch
 
+    from vision_slam_frontend_tpu_torch.ops import akaze, brisk, freak
     from vision_slam_frontend_tpu_torch.ops.fast import fast_detect
-    from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur
+    from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear
 
-    errs = {}
-    # B1: two rendered 640x480 frames.
-    e = 0.0
-    for f in frames[:2]:
-        img = torch.from_numpy(u8(f.left)).to(dev)
-        raw, sup = ck.fast_scores_nms(img)
-        torch.cuda.synchronize()
-        raw_p, sup_p = ck.fast_scores_nms_plain(img)
-        check_equal("fast_scores_nms raw vs plain", raw, raw_p)
-        check_equal("fast_scores_nms suppressed vs plain", sup, sup_p)
-        e = max(e, max_abs_err(raw, raw_p), max_abs_err(sup, sup_p))
-    errs["fast_scores_nms"] = e
+    cases = []
+    img = torch.from_numpy(u8(frames[1].left)).to(dev)
+    H, W = img.shape
 
-    # B2: K=512, C=1, ps=31 f16 (the ORB path) with clamped corners and
-    # exact .5 coordinates, plus a 2-plane f32 case.
-    img = torch.from_numpy(u8(frames[0].left)).to(dev)
+    # B1: uint8 frame, float32 frame (non-integer values), pyramid level.
+    level = resize_linear(img.float(), (343, 457))
+    for label, im in (("640x480 u8", img), ("640x480 f32", gaussian_blur(img.float(), sigma=1.0)),
+                      ("457x343 f32 level", level)):
+        h, w = im.shape
+        b_ms, b_by = bound(h * w * (im.element_size() + 8), ops=313.0 * h * w)
+        cases.append(dict(kernel="fast_scores_nms", shape=label, kernel_fn=lambda im=im: ck.fast_scores_nms(im),
+                          plain_fn=lambda im=im: ck.fast_scores_nms_plain(im), library_fn=None,
+                          bound_ms=b_ms, bound_by=b_by))
+
+    # B2: each family's planes at K=512, keypoints from the detector plus
+    # clamped corners and exact .5 coordinates.
     kps, _, _ = fast_detect(img, threshold=12.0, max_keypoints=512, border=19)
     special = torch.tensor(
         [[0.0, 0.0], [639.0, 479.0], [-7.0, 3.0], [700.0, 500.0], [100.5, 200.5],
@@ -163,35 +232,122 @@ def phase_kernels(ck, frames, dev):
         device=dev,
     )
     kps = torch.cat([kps[: 512 - len(special)], special]).contiguous()
-    planes = gaussian_blur(img.float()).to(torch.float16)[None].contiguous()
-    e = 0.0
-    for p in (planes, torch.cat([planes, planes * 0.5]).float().contiguous()):
-        out = ck.extract_patches(p, kps, 31)
-        torch.cuda.synchronize()
-        ref = ck.extract_patches_plain(p, kps, 31)
-        check_equal(f"extract_patches {p.dtype} vs plain", out, ref)
-        e = max(e, max_abs_err(out, ref))
-    errs["extract_patches"] = e
+    imf = img.float()
+    L = akaze.build_scale_space(imf, 1, 1.4)[0]
+    Lx, Ly = akaze.grad_central(L)
+    for label, planes, ps in (
+        ("ORB K=512 C=1 ps=31 f16", gaussian_blur(imf).to(torch.float16)[None], 31),
+        ("BRISK K=512 C=5 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in brisk.SIGMAS]), 27),
+        ("FREAK K=512 C=7 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in freak.SIGMAS]), 27),
+        ("AKAZE K=512 C=3 ps=31 f32", torch.stack([L, Lx, Ly]), 31),
+    ):
+        planes = planes.contiguous()
+        C = planes.shape[0]
+        r = ps // 2
+        xs = (torch.round(kps[:, 0]).long() - r).clamp(0, W - ps)
+        ys = (torch.round(kps[:, 1]).long() - r).clamp(0, H - ps)
+        off = torch.arange(ps, device=dev)
+        r_idx = (ys[:, None, None] + off[None, :, None]).expand(-1, ps, ps)
+        c_idx = (xs[:, None, None] + off[None, None, :]).expand(-1, ps, ps)
+        elem = planes.element_size()
+        b_ms, b_by = bound(covered_pixels(ys, xs, ps, ps, H, W) * C * elem + kps.numel() * 4
+                           + kps.shape[0] * C * ps * ps * elem)
+        cases.append(dict(kernel="extract_patches", shape=label,
+                          kernel_fn=lambda p=planes, ps=ps: ck.extract_patches(p, kps, ps),
+                          plain_fn=lambda p=planes, ps=ps: ck.extract_patches_plain(p, kps, ps),
+                          library_fn=lambda p=planes, ri=r_idx, ci=c_idx: p[:, ri, ci].transpose(0, 1),
+                          bound_ms=b_ms, bound_by=b_by))
 
-    # B3: stereo 512x512 and window 5120x512 at 8 words, 2048x2048 at 16
-    # words, invalid trains, and one all-invalid train set.
+    # B3/B4: stereo 512x512 and window 5120x512 at 8 and 16 words.
     rng = np.random.default_rng(0)
-    e = 0.0
-    for kq, kt, words, invalid in ((512, 512, 8, 0.3), (5120, 512, 8, 0.3),
-                                   (2048, 2048, 16, 0.2), (512, 512, 8, 1.0), (77, 300, 8, 0.5)):
+    for kq, kt, words in ((5120, 512, 8), (512, 512, 8), (5120, 512, 16), (512, 512, 16)):
+        q = torch.from_numpy(rng.integers(0, 2**32, (kq, words), dtype=np.uint32).view(np.int32)).to(dev)
+        t = torch.from_numpy(rng.integers(0, 2**32, (kt, words), dtype=np.uint32).view(np.int32)).to(dev)
+        v = torch.from_numpy(rng.random(kt) >= 0.3).to(dev)
+        n_valid = int(v.sum())
+        b_ms, b_by = bound((kq + kt) * words * 4 + kt + kq * 12, ops=2.0 * kq * n_valid * words * 32,
+                           ops_per_s=INT8_TENSOR_OPS_PER_S)
+        kind = "window" if kq > kt else "stereo"
+        cases.append(dict(kernel="hamming_top2", shape=f"{kind} {kq}x{kt} words={words}",
+                          kernel_fn=lambda q=q, t=t, v=v: ck.hamming_top2(q, t, v),
+                          plain_fn=lambda q=q, t=t, v=v: ck.hamming_top2_plain(q, t, v), library_fn=None,
+                          bound_ms=b_ms, bound_by=b_by))
+    return cases
+
+
+def window_cases(ck, dev):
+    """B5's five cases at the TPU probe's shapes (480x640, K=8192)."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.ops import kernel_variants as kv
+
+    H, W, K = kv.PROBE_SHAPE
+    img, ys, xs = kv.probe_inputs(H, W, K, dev)
+    cases = []
+    for name, rows, shifted, block in kv.CASES:
+        cover = covered_pixels(ys, xs if shifted else torch.zeros_like(xs), rows, ck.WINDOW_COLS, H, W)
+        b_ms, b_by = bound(cover * 4 + K * 8 + K * rows * ck.WINDOW_COLS * 4)
+        cases.append(dict(kernel="patch_windows", shape=name, bound_ms=b_ms, bound_by=b_by,
+                          kernel_fn=lambda r=rows, s=shifted, b=block: ck.patch_windows(img, ys, xs, r, s, b),
+                          plain_fn=lambda r=rows, s=shifted, b=block: ck.patch_windows_plain(img, ys, xs, r, s, b)))
+    return (img, ys, xs), cases
+
+
+def compare_outputs(what: str, out, ref) -> float:
+    """Exact equality of a kernel's output(s) with the plain version's;
+    returns the max abs error (0)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        check_equal(f"{what} output {i} vs plain", a, b)
+        err = max(err, max_abs_err(a, b))
+    return err
+
+
+def phase_kernels(ck, cases, windows, dev):
+    """Each case, plus edge cases, against the plain version; returns the
+    max error per kernel."""
+    import torch
+
+    errs = {name: 0.0 for name in KERNELS}
+    for c in cases + windows:
+        out = c["kernel_fn"]()
+        torch.cuda.synchronize()
+        ref = c["plain_fn"]()
+        errs[c["kernel"]] = max(errs[c["kernel"]], compare_outputs(f"{c['kernel']} {c['shape']}", out, ref))
+        if c.get("library_fn") is not None:  # the timed library call computes the same function
+            check_equal(f"{c['kernel']} {c['shape']} library call vs plain", c["library_fn"](),
+                        ref.reshape(c["library_fn"]().shape))
+    # Hamming edge cases: all trains invalid (1e9 sentinels), ragged sizes,
+    # large 16-word sets.
+    rng = np.random.default_rng(1)
+    for kq, kt, words, invalid in ((512, 512, 8, 1.0), (77, 300, 8, 0.5), (2048, 2048, 16, 0.2), (64, 1, 16, 0.0)):
         q = torch.from_numpy(rng.integers(0, 2**32, (kq, words), dtype=np.uint32).view(np.int32)).to(dev)
         t = torch.from_numpy(rng.integers(0, 2**32, (kt, words), dtype=np.uint32).view(np.int32)).to(dev)
         v = torch.from_numpy(rng.random(kt) >= invalid).to(dev)
-        idx, d1, d2 = ck.hamming_top2(q, t, v)
+        out = ck.hamming_top2(q, t, v)
         torch.cuda.synchronize()
-        idx_p, d1_p, d2_p = ck.hamming_top2_plain(q, t, v)
-        case = f"hamming_top2 {kq}x{kt} words={words} invalid={invalid}"
-        check_equal(f"{case} idx vs plain", idx, idx_p)
-        check_equal(f"{case} d1 vs plain", d1, d1_p)
-        check_equal(f"{case} d2 vs plain", d2, d2_p)
-        e = max(e, max_abs_err(d1, d1_p), max_abs_err(d2, d2_p), max_abs_err(idx, idx_p))
-    errs["hamming_top2"] = e
+        what = f"hamming_top2 {kq}x{kt} words={words} invalid={invalid}"
+        errs["hamming_top2"] = max(errs["hamming_top2"], compare_outputs(what, out, ck.hamming_top2_plain(q, t, v)))
+    # Window gather edge cases: windows that leave the image.
+    img = torch.rand((40, 50), device=dev)
+    ys = torch.tensor([-3, 0, 35, 39, 100], dtype=torch.int32, device=dev)
+    xs = torch.tensor([0, 45, -2, 20, 3], dtype=torch.int32, device=dev)
+    for rows in ck.WINDOW_ROWS:
+        for shifted in (False, True):
+            for block in ck.WINDOW_BLOCKS:
+                out = ck.patch_windows(img, ys, xs, rows, shifted, block)
+                torch.cuda.synchronize()
+                errs["patch_windows"] = max(errs["patch_windows"], compare_outputs(
+                    f"patch_windows edges rows={rows} shifted={shifted} block={block}", out,
+                    ck.patch_windows_plain(img, ys, xs, rows, shifted, block)))
     return errs
+
+
+# ---------------------------------------------------------------------------
+# Steps, parity, main paths
+# ---------------------------------------------------------------------------
 
 
 def step_inputs(frames, dev):
@@ -216,9 +372,18 @@ def run_step(params, state, inputs, fid, config):
     return keyframe_step(
         params, state, left, right, fid,
         capacity=config.max_features, window=config.frame_life, border=config.detect_border,
-        blur_sigma=config.blur_sigma, mutual_check=config.mutual_check,
+        blur_sigma=config.blur_sigma, num_levels=config.num_levels, scale_factor=config.pyramid_scale,
+        descriptor_family=config.descriptor_family, mutual_check=config.mutual_check,
         curr_pose_t=t, curr_pose_q=q,
     )
+
+
+def new_state(config, dev):
+    from vision_slam_frontend_tpu_torch.frontend.keyframe import WindowState
+    from vision_slam_frontend_tpu_torch.ops.descriptors import get_family
+
+    return WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, dev,
+                              words=get_family(config.descriptor_family).words)
 
 
 def state_to(state, dev):
@@ -229,23 +394,21 @@ def state_to(state, dev):
     return WindowState(**{f.name: getattr(state, f.name).to(dev) for f in dataclasses.fields(state)})
 
 
-def phase_parity(config, frames, dev):
-    """keyframe_step on CUDA vs CPU from the same state, NUM_PARITY_KEYFRAMES times."""
+def phase_parity(config, in_gpu, in_cpu, n_keyframes, dev):
+    """keyframe_step on CUDA vs CPU from the same state, n_keyframes times."""
     import dataclasses
 
     import torch
 
-    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams, WindowState
+    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams
 
     cpu = torch.device("cpu")
     p_gpu = StepParams.from_config(config, dev)
     p_cpu = StepParams.from_config(config, cpu)
-    s_cpu = WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, cpu)
-    in_gpu = step_inputs(frames, dev)
-    in_cpu = step_inputs(frames, cpu)
+    s_cpu = new_state(config, cpu)
     n_fields = 0
     float_err = 0.0
-    for k in range(1, NUM_PARITY_KEYFRAMES + 1):
+    for k in range(1, n_keyframes + 1):
         s_gpu_new, r_gpu = run_step(p_gpu, state_to(s_cpu, dev), in_gpu[k], k - 1, config)
         s_cpu_new, r_cpu = run_step(p_cpu, s_cpu, in_cpu[k], k - 1, config)
         for obj_g, obj_c in ((r_gpu, r_cpu), (s_gpu_new, s_cpu_new)):
@@ -256,6 +419,7 @@ def phase_parity(config, frames, dev):
                 else:
                     check_equal(f"keyframe {k}: {type(obj_c).__name__}.{f.name} CUDA vs CPU", a, b)
                     n_fields += 1
+        check(int(r_cpu.num_features) > 50, f"keyframe {k}: only {int(r_cpu.num_features)} features")
         s_cpu = s_cpu_new
     return n_fields, float_err
 
@@ -276,99 +440,183 @@ def compare_problems(gpu_npz: str, cpu_npz: str) -> str:
             f"{len(a['vfm_factor'])} matches; track ids equal {track_eq:.4f}, max pixel diff {px:.2e}")
 
 
-def phase_main(ck, dev, tmp):
-    """The CLI on the card; returns the launch counts of that run."""
+def check_launches(path: str, launches: dict, runs: tuple[str, ...], absent: tuple[str, ...] = ()) -> None:
+    for name in runs:
+        check(launches[name] > 0, f"{path}: kernel {name} was not launched")
+    for name in absent:
+        check(launches[name] == 0, f"{path}: kernel {name} was launched {launches[name]} times")
+
+
+def run_cli(ck, argv, dev, tmp, tag):
+    """The CLI on the card (launch counts from that run), then on the CPU;
+    returns (summary line, launches, keyframes, agreement)."""
     import contextlib
     import io
 
     from vision_slam_frontend_tpu_torch.cli.slam_frontend import main as cli_main
 
-    gpu_out = os.path.join(tmp, "gpu.npz")
-    cpu_out = os.path.join(tmp, "cpu.npz")
-    ck.reset_launch_counts()
+    gpu_out = os.path.join(tmp, f"{tag}_gpu.npz")
+    cpu_out = os.path.join(tmp, f"{tag}_cpu.npz")
     buf = io.StringIO()
+    ck.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
-        rc = cli_main(["--input", MAIN_INPUT, "--output", gpu_out, "--device", str(dev)])
+        rc = cli_main([*argv, "--output", gpu_out, "--device", str(dev)])
     launches = dict(ck.LAUNCHES)
-    check(rc == 0, f"CLI exit code {rc}")
+    check(rc == 0, f"CLI {argv} exit code {rc}")
     summary = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Saved SLAM problem")]
-    check(len(summary) == 1, "no summary line from the CLI")
-    n_keyframes = len(np.load(gpu_out)["nodes_id"])
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched by the main path")
+    check(len(summary) == 1, f"no summary line from the CLI {argv}")
     with contextlib.redirect_stdout(io.StringIO()):
-        check(cli_main(["--input", MAIN_INPUT, "--output", cpu_out, "--device", "cpu"]) == 0, "CPU run failed")
-    return summary[0], launches, n_keyframes, compare_problems(gpu_out, cpu_out)
+        check(cli_main([*argv, "--output", cpu_out, "--device", "cpu"]) == 0, f"CPU run {argv} failed")
+    return summary[0], launches, len(np.load(gpu_out)["nodes_id"]), compare_problems(gpu_out, cpu_out)
 
 
-def phase_sync_free(config, frames, dev):
-    """One steady-state step, inputs already on the card, under sync-debug "error"."""
+def run_frontend(ck, config, frames, dev, tmp, tag):
+    """Frontend over `frames` on the card (launch counts from that run),
+    then on the CPU; returns (summary, launches, keyframes, agreement)."""
     import torch
 
-    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams, WindowState
+    from vision_slam_frontend_tpu_torch.frontend import Frontend
+    from vision_slam_frontend_tpu_torch.io.serialize import save_problem
 
-    params = StepParams.from_config(config, dev)
-    state = WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, dev)
+    paths, summaries, launches = [], [], None
+    for i, device in enumerate((dev, torch.device("cpu"))):
+        ck.reset_launch_counts()
+        fe = Frontend(config, device=device)
+        for f in frames:
+            fe.observe_odometry(f.odom_translation, f.odom_rotation, f.timestamp)
+            fe.observe_image(f.left, f.right, f.timestamp)
+        problem = fe.get_slam_problem()
+        if i == 0:
+            launches = dict(ck.LAUNCHES)
+        paths.append(os.path.join(tmp, f"{tag}_{i}.npz"))
+        save_problem(paths[-1], problem, config=config, node_track_ids=fe.node_track_ids)
+        summaries.append(problem.summary())
+    return summaries[0], launches, len(np.load(paths[0])["nodes_id"]), compare_problems(*paths)
+
+
+def phase_main(ck, frames, window_inputs, dev, tmp):
+    """Every path once; returns ({path: launches}, lines, B5 results)."""
+    from vision_slam_frontend_tpu_torch.ops import kernel_variants as kv
+
+    frontend_kernels = ("fast_scores_nms", "extract_patches", "hamming_top2")
+    per_path = {}
+    lines = []
+    summary, launches, n_kf, agreement = run_cli(ck, ["--input", MAIN_INPUT], dev, tmp, "orb")
+    check_launches("ORB CLI", launches, frontend_kernels, absent=("patch_windows",))
+    per_path["orb"] = launches
+    lines.append(f"ORB {MAIN_INPUT}: {summary}; launches {launches} over {n_kf} keyframes; vs CPU: {agreement}")
+    for fam in ("brisk", "freak", "akaze"):
+        summary, launches, n_kf, agreement = run_cli(
+            ck, ["--input", FAMILY_INPUT, "--descriptor_family", fam], dev, tmp, fam)
+        if fam == "akaze":  # AKAZE detects on the Hessian response: no FAST kernel
+            check_launches("AKAZE CLI", launches, ("extract_patches", "hamming_top2"),
+                           absent=("fast_scores_nms", "patch_windows"))
+        else:
+            check_launches(f"{fam} CLI", launches, frontend_kernels, absent=("patch_windows",))
+        per_path[fam] = launches
+        lines.append(f"{fam} {FAMILY_INPUT}: {summary}; launches {launches} over {n_kf} keyframes; vs CPU: {agreement}")
+    summary, launches, n_kf, agreement = run_frontend(ck, make_config("orb_pyramid"), frames[:FAMILY_FRAMES], dev,
+                                                      tmp, "pyramid")
+    check_launches("ORB pyramid", launches, frontend_kernels, absent=("patch_windows",))
+    per_path["orb_pyramid"] = launches
+    lines.append(f"ORB 3-level pyramid, {FAMILY_FRAMES} frames: {summary}; launches {launches} over {n_kf} "
+                 f"keyframes; vs CPU: {agreement}")
+    # The window-gather entry point (ops/kernel_variants), at the probe's shapes.
+    ck.reset_launch_counts()
+    b5 = kv.run_cases(*window_inputs, runs=TIMING_RUNS)
+    launches = dict(ck.LAUNCHES)
+    check_launches("kernel_variants", launches, ("patch_windows",),
+                   absent=("fast_scores_nms", "extract_patches", "hamming_top2"))
+    per_path["kernel_variants"] = launches
+    lines.append(f"kernel_variants at H=480 W=640 K=8192: 5 cases exact; launches {launches}")
+    return per_path, lines, b5
+
+
+def phase_sync_free(frames, dev):
+    """One steady-state step per configuration, inputs already on the card,
+    under sync-debug "error"."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams
+
     inputs = step_inputs(frames[:4], dev)
-    for k in range(1, 3):
-        state, _ = run_step(params, state, inputs[k], k - 1, config)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        state, result = run_step(params, state, inputs[3], 2, config)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return int(result.num_features)
+    out = {}
+    for name in CONFIGS:
+        config = make_config(name)
+        params = StepParams.from_config(config, dev)
+        state = new_state(config, dev)
+        for k in range(1, 3):
+            state, _ = run_step(params, state, inputs[k], k - 1, config)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, result = run_step(params, state, inputs[3], 2, config)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        out[name] = int(result.num_features)
+    return out
 
 
-def phase_timing(ck, config, frames, dev):
+def step_times(config, inputs, dev):
+    """Median synced keyframe step time and median host enqueue time (ms,
+    host clock) over the steady keyframes, and their count."""
     import torch
 
-    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams, WindowState
-    from vision_slam_frontend_tpu_torch.ops.fast import fast_detect
-    from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur
+    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams
 
     params = StepParams.from_config(config, dev)
-    state = WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, dev)
-    inputs = step_inputs(frames, dev)
-    step_ms = []
-    for k in range(1, len(frames)):
+    state = new_state(config, dev)
+    step_ms, enqueue_ms = [], []
+    for k in range(1, len(inputs)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _ = run_step(params, state, inputs[k], k - 1, config)
+        t1 = time.perf_counter()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    steady = step_ms[2:]  # the first keyframes pay one-time set-up
+        enqueue_ms.append((t1 - t0) * 1e3)
+    # The first keyframes pay one-time set-up.
+    return statistics.median(step_ms[2:]), statistics.median(enqueue_ms[2:]), len(step_ms) - 2
 
-    img = inputs[1][0]
-    kps, _, _ = fast_detect(img, threshold=12.0, max_keypoints=config.max_features, border=19)
-    planes = gaussian_blur(img.float()).to(torch.float16)[None].contiguous()
-    desc = state.desc  # (W, K, 8) window descriptors of the run above
-    K = config.max_features
-    q_window = desc.reshape(-1, desc.shape[-1]).contiguous()
-    t_curr = desc[-1].contiguous()
-    v_curr = state.valid[-1].contiguous()
-    q_stereo = desc[-2].contiguous()
-    cases = {
-        "fast_scores_nms": (lambda: ck.fast_scores_nms(img), lambda: ck.fast_scores_nms_plain(img), "640x480"),
-        "extract_patches": (lambda: ck.extract_patches(planes, kps, 31),
-                            lambda: ck.extract_patches_plain(planes, kps, 31), f"K={K} C=1 ps=31 f16"),
-        "hamming_top2": (lambda: ck.hamming_top2(q_window, t_curr, v_curr),
-                         lambda: ck.hamming_top2_plain(q_window, t_curr, v_curr),
-                         f"window {q_window.shape[0]}x{K} words=8"),
-        "hamming_top2 (stereo)": (lambda: ck.hamming_top2(q_stereo, t_curr, v_curr),
-                                  lambda: ck.hamming_top2_plain(q_stereo, t_curr, v_curr), f"stereo {K}x{K} words=8"),
-    }
-    # Plain, kernel, kernel, plain: the median of each pair.
-    times = {}
-    for name, (kernel, plain, shape) in cases.items():
-        p1 = cuda_ms(plain)
-        k1 = cuda_ms(kernel)
-        k2 = cuda_ms(kernel)
-        p2 = cuda_ms(plain)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2, shape)
-    return statistics.median(steady), len(steady), times
+
+def profile_step(config, inputs, dev):
+    """Kernel launches and device time (ms) of one steady step, from
+    torch.profiler: (launches, device ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams
+
+    params = StepParams.from_config(config, dev)
+    state = new_state(config, dev)
+    for k in range(1, 4):
+        state, _ = run_step(params, state, inputs[k], k - 1, config)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_step(params, state, inputs[4], 3, config)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    device_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    return launches, device_us / 1e3
+
+
+def phase_timing(cases, frames, dev):
+    """Step medians per configuration; each kernel case's times."""
+    inputs = step_inputs(frames, dev)
+    steps = {name: step_times(make_config(name), inputs, dev) + profile_step(make_config(name), inputs, dev)
+             for name in CONFIGS}
+    rows = []
+    for c in cases:
+        # Plain, kernel, kernel, plain: the mean of each pair's medians.
+        p1, k1, k2, p2 = (cuda_ms(c["plain_fn"]), cuda_ms(c["kernel_fn"]), cuda_ms(c["kernel_fn"]),
+                          cuda_ms(c["plain_fn"]))
+        lib = cuda_ms(c["library_fn"]) if c["library_fn"] is not None else None
+        rows.append(dict(kernel=c["kernel"], shape=c["shape"], ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                         library_ms=lib, bound_ms=c["bound_ms"], bound_by=c["bound_by"]))
+    return steps, rows
 
 
 def main() -> int:
@@ -380,14 +628,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this smoke test runs only on the GPU", file=sys.stderr)
         return 1
-    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
-    from vision_slam_frontend_tpu_torch.frontend.config import FrontendConfig
     from vision_slam_frontend_tpu_torch.ops import _build
     from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -404,34 +651,54 @@ def main() -> int:
              if _build.build_seconds is not None else f"{_build.library_path().name} already built")
     say("2 build", f"{built}; loaded in {time.perf_counter() - t0:.1f} s")
 
-    config = FrontendConfig(calib=SyntheticRig().calib(), fast_threshold=12.0)
     frames = synthetic_frames(TIMING_KEYFRAMES + 1)
 
-    errs = phase_kernels(ck, frames, dev)
-    say("3 kernels", "kernel == plain version on the card, exact: "
+    cases = kernel_cases(ck, frames, dev)
+    window_inputs, windows = window_cases(ck, dev)
+    errs = phase_kernels(ck, cases, windows, dev)
+    say("3 kernels", f"kernel == plain version on the card, exact, at {len(cases) + len(windows)} shapes: "
         + ", ".join(f"{k} max_abs_err={v}" for k, v in errs.items()))
 
-    n_fields, float_err = phase_parity(config, frames[: NUM_PARITY_KEYFRAMES + 1], dev)
-    say("4 parity", f"{NUM_PARITY_KEYFRAMES} keyframes CUDA vs CPU: {n_fields} int/bool fields equal; "
-        f"float fields max abs diff {float_err:.3g}")
+    cpu = torch.device("cpu")
+    in_gpu = step_inputs(frames[: NUM_PARITY_KEYFRAMES + 1], dev)
+    in_cpu = step_inputs(frames[: NUM_PARITY_KEYFRAMES + 1], cpu)
+    parity = []
+    for name in CONFIGS:
+        n_kf = NUM_PARITY_KEYFRAMES if name == "orb" else NUM_FAMILY_PARITY_KEYFRAMES
+        n_fields, float_err = phase_parity(make_config(name), in_gpu, in_cpu, n_kf, dev)
+        parity.append(f"{name} {n_kf} keyframes: {n_fields} int/bool fields equal, float max abs diff {float_err:.3g}")
+    say("4 parity", "CUDA vs CPU at 640x480, K=512, W=10: " + "; ".join(parity))
 
     with tempfile.TemporaryDirectory() as tmp:
-        summary, launches, n_kf, agreement = phase_main(ck, dev, tmp)
-    n_feat = phase_sync_free(config, frames, dev)
-    say("5 main", f"{summary}; launches {launches} over {n_kf} keyframes; vs CPU run: {agreement}; "
-        f"steady step under sync-debug 'error' ok ({n_feat} features)")
+        per_path, lines, b5 = phase_main(ck, frames, window_inputs, dev, tmp)
+    n_feat = phase_sync_free(frames, dev)
+    say("5 main", " | ".join(lines) + f" | steady step under sync-debug 'error' ok, features {n_feat}")
 
-    step_ms, n_steady, times = phase_timing(ck, config, frames, dev)
-    say("6 timing", f"[{smi}] keyframe step median {step_ms:.3f} ms over {n_steady} steady keyframes "
-        "(640x480, K=512, W=10); " + "; ".join(
-            f"{name} {shape}: kernel {k:.4f} ms, plain {p:.4f} ms" for name, (k, p, shape) in times.items()))
+    steps, rows = phase_timing(cases, frames, dev)
+    bounds = {w["shape"]: w for w in windows}
+    for r in b5:  # timed by the entry point in phase 5
+        w = bounds[r["name"]]
+        rows.append(dict(kernel="patch_windows", shape=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
+                         library_ms=r["library_ms"], bound_ms=w["bound_ms"], bound_by=w["bound_by"]))
+    say("6 timing", f"[{smi}] keyframe step (640x480, K=512, W=10), medians over steady keyframes: " + "; ".join(
+        f"{name} {ms:.3f} ms synced, {enq:.3f} ms enqueue ({n} keyframes), profiled step {nl} launches, "
+        f"{dev_ms:.3f} ms device" for name, (ms, enq, n, nl, dev_ms) in steps.items()) + " | " + "; ".join(
+        f"{r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']})" for r in rows))
+    say("6 timing", f"whole run {time.perf_counter() - t_start:.1f} s")
 
+    launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
+    print(json.dumps({"card": smi, "steps": {k: dict(zip(("ms", "enqueue_ms", "keyframes", "launches", "device_ms"), v))
+                                             for k, v in steps.items()}, "shapes": rows,
+                      "launches_per_path": per_path}), flush=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        k_ms, p_ms, _ = times[name]
+        r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+            "launches": launches[name], "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}), flush=True)

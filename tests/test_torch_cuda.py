@@ -1,6 +1,6 @@
 """The port on a CUDA GPU: each kernel against its plain PyTorch version at
-the main path's shapes, and the keyframe step and Frontend on the card
-against the CPU.
+the main paths' shapes, and the keyframe step and Frontend on the card
+against the CPU, for every descriptor family and the ORB pyramid.
 
 Every test here needs the card and skips where there is none. The file
 imports no JAX (the GPU machine has none), so it runs there on its own:
@@ -22,8 +22,11 @@ torch.set_num_threads(2)
 from vision_slam_frontend_tpu_torch.frontend import Frontend, FrontendConfig  # noqa: E402
 from vision_slam_frontend_tpu_torch.frontend import keyframe as tkf  # noqa: E402
 from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig, generate_sequence  # noqa: E402
+from vision_slam_frontend_tpu_torch.ops import akaze, brisk, freak  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur  # noqa: E402
+from vision_slam_frontend_tpu_torch.ops import kernel_variants as kv  # noqa: E402
+from vision_slam_frontend_tpu_torch.ops.descriptors import get_family  # noqa: E402
+from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear  # noqa: E402
 from vision_slam_frontend_tpu_torch.utils import np_geom  # noqa: E402
 
 NUM_FRAMES = 5
@@ -79,16 +82,20 @@ def test_kernels_match_plain_versions_on_the_card(cuda, frames):
         for a, b in zip(ck.hamming_top2(q, t, v), ck.hamming_top2_plain(q, t, v)):
             assert torch.equal(a, b), (kq, kt, words, invalid)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"fast_scores_nms": 1, "extract_patches": 1, "hamming_top2": 4}
+    assert ck.LAUNCHES == {"fast_scores_nms": 1, "extract_patches": 1, "hamming_top2": 4, "patch_windows": 0}
 
 
 @pytest.mark.cuda
-def test_keyframe_step_cuda_matches_cpu(cuda, frames):
+@pytest.mark.parametrize("overrides", [{}, {"descriptor_family": "brisk"}, {"descriptor_family": "freak"},
+                                       {"descriptor_family": "akaze"}, {"num_levels": 3}],
+                         ids=["orb", "brisk", "freak", "akaze", "orb_pyramid"])
+def test_keyframe_step_cuda_matches_cpu(cuda, frames, overrides):
     """From the same state, every int and bool field of the step's result
     and new state is equal on the card and on the CPU."""
-    config = _config()
+    config = _config(**overrides)
     params = {d: tkf.StepParams.from_config(config, d) for d in (CPU, cuda)}
-    state = tkf.WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, CPU)
+    state = tkf.WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, CPU,
+                                   words=get_family(config.descriptor_family).words)
     q0_inv = np_geom.quat_inverse(np_geom.quat_normalize(frames[0].odom_rotation))
     for k in range(1, NUM_FRAMES):
         f = frames[k]
@@ -100,6 +107,7 @@ def test_keyframe_step_cuda_matches_cpu(cuda, frames):
             t = lambda a: torch.from_numpy(np.asarray(a)).to(d)
             out[d] = tkf.keyframe_step(
                 params[d], s, t(_u8(f.left)), t(_u8(f.right)), k - 1,
+                num_levels=config.num_levels, descriptor_family=config.descriptor_family,
                 curr_pose_t=t(pose_t.astype(np.float32)), curr_pose_q=t(pose_q.astype(np.float32)),
             )
         for obj_cpu, obj_gpu in zip(out[CPU], out[cuda]):
@@ -120,7 +128,8 @@ def test_frontend_on_the_card_launches_each_kernel_twice_per_keyframe(cuda, fram
         fe.observe_image(f.left, f.right, f.timestamp)
     n = fe.get_num_poses()
     assert n == NUM_FRAMES - 1
-    assert ck.LAUNCHES == {"fast_scores_nms": 2 * n, "extract_patches": 2 * n, "hamming_top2": 2 * n}
+    assert ck.LAUNCHES == {"fast_scores_nms": 2 * n, "extract_patches": 2 * n, "hamming_top2": 2 * n,
+                           "patch_windows": 0}
     ref = Frontend(_config(), device=CPU)
     for f in frames:
         ref.observe_odometry(f.odom_translation, f.odom_rotation, f.timestamp)

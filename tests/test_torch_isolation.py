@@ -1,0 +1,102 @@
+"""The port stands alone: with `jax` and the JAX package made unimportable,
+every module of `vision_slam_frontend_tpu_torch` and `chip_smoke.py` still
+imports; and the port's own copies of the synthetic world and the host
+quaternion helpers give the JAX package's arrays exactly.
+"""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import vision_slam_frontend_tpu_torch  # noqa: E402
+from vision_slam_frontend_tpu.io import synthetic as jsyn  # noqa: E402
+from vision_slam_frontend_tpu.utils import np_geom as jgeom  # noqa: E402
+from vision_slam_frontend_tpu_torch.io import synthetic as tsyn  # noqa: E402
+from vision_slam_frontend_tpu_torch.utils import np_geom as tgeom  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKED_IMPORT = r'''
+import importlib, importlib.abc, runpy, sys
+
+BLOCKED = ("jax", "jaxlib", "vision_slam_frontend_tpu")
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
+for name in sys.argv[1:]:
+    if name.endswith(".py"):
+        runpy.run_path(name, run_name="not_main")
+    else:
+        importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("imported", len(sys.argv) - 1)
+'''
+
+
+def _port_modules():
+    names = [vision_slam_frontend_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(vision_slam_frontend_tpu_torch.__path__, prefix="vision_slam_frontend_tpu_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    modules = _port_modules()
+    assert {"vision_slam_frontend_tpu_torch.ops.akaze", "vision_slam_frontend_tpu_torch.ops.kernel_variants",
+            "vision_slam_frontend_tpu_torch.cli.slam_frontend"} <= set(modules)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT, *modules, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert f"imported {len(modules) + 1}" in proc.stdout
+
+
+def test_blocker_does_block():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, "vision_slam_frontend_tpu.io.synthetic"],
+                          capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode != 0 and "blocked import of vision_slam_frontend_tpu" in proc.stderr
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_synthetic_world_equals_the_jax_packages(seed):
+    kw = dict(num_frames=3, seed=seed, odom_drift=0.01, roll_rate=0.002)
+    rig = dict(width=320, height=240, cx=160.0, cy=120.0)
+    ours = list(tsyn.generate_sequence(rig=tsyn.SyntheticRig(**rig), **kw))
+    theirs = list(jsyn.generate_sequence(rig=jsyn.SyntheticRig(**rig), **kw))
+    assert len(ours) == len(theirs) == 3
+    for a, b in zip(ours, theirs):
+        for field in ("left", "right", "odom_translation", "odom_rotation", "cam_to_world_R", "cam_pos"):
+            np.testing.assert_array_equal(getattr(a, field), getattr(b, field), err_msg=field)
+        assert a.timestamp == b.timestamp
+    assert tsyn.SyntheticRig(**rig).calib() == jsyn.SyntheticRig(**rig).calib()
+    np.testing.assert_array_equal(tsyn.make_texture(seed, size=128), jsyn.make_texture(seed, size=128))
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_np_geom_equals_the_jax_packages(seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(2, 4))
+    v = rng.normal(size=3)
+    aa = rng.normal(size=3)
+    a, b = tgeom.quat_normalize(q[0]), tgeom.quat_normalize(q[1])
+    np.testing.assert_array_equal(a, jgeom.quat_normalize(q[0]))
+    for name, args in (("quat_multiply", (a, b)), ("quat_inverse", (a,)), ("quat_rotate", (a, v)),
+                       ("quat_angular_distance", (a, b)), ("axis_angle_to_quat", (aa,)),
+                       ("axis_angle_to_matrix", (aa,)), ("quat_multiply_batch", (q, q[::-1])),
+                       ("quat_to_axis_angle", (a,))):
+        np.testing.assert_array_equal(getattr(tgeom, name)(*args), getattr(jgeom, name)(*args), err_msg=name)

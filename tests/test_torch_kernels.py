@@ -1,6 +1,7 @@
-"""The port's three CUDA kernels: their plain PyTorch versions against the
-JAX package's Pallas kernels (interpret mode) and XLA paths, the wrappers'
-dispatch and checks. Each kernel against its plain version on the card is in
+"""The port's CUDA kernels: their plain PyTorch versions against the JAX
+package's Pallas kernels (interpret mode) and XLA paths, the wrappers'
+dispatch and checks. The window-gather kernel's are in
+tests/test_torch_kernel_variants.py. Each kernel against its plain version on the card is in
 tests/test_torch_cuda.py.
 
 Inputs are made with numpy from fixed seeds and handed to both packages.
@@ -81,9 +82,9 @@ def test_fast_plain_matches_xla_path_on_interior():
 
 
 def test_fast_wrapper_checks_input():
-    with pytest.raises(ValueError, match="uint8"):
-        ck.fast_scores_nms(torch.zeros((8, 8), dtype=torch.float32))
-    with pytest.raises(ValueError, match="uint8"):
+    with pytest.raises(ValueError, match="uint8 or float32"):
+        ck.fast_scores_nms(torch.zeros((8, 8), dtype=torch.float64))
+    with pytest.raises(ValueError, match="uint8 or float32"):
         ck.fast_scores_nms(torch.zeros((2, 8, 8), dtype=torch.uint8))
 
 
@@ -188,6 +189,26 @@ def test_hamming_plain_matches_xla_knn2(kq, kt, words, invalid):
     np.testing.assert_array_equal(d2.numpy(), np.asarray(d2_j))
 
 
+@pytest.mark.parametrize("kq,kt,words,invalid", [(128, 256, 8, 0.3), (256, 128, 16, 0.5), (128, 128, 8, 1.0)])
+def test_hamming_plain_matches_xor_popcount_interpret(kq, kt, words, invalid):
+    """B4 (`hamming_top2`, XOR + popcount) in interpret mode: its sentinel
+    1 << 20 is the port's 1e9, and idx is compared where d1 is a real
+    distance (<= the bit width); the all-invalid case has none."""
+    rng = np.random.default_rng(kq + 3 * kt + words)
+    q, t = _random_words(rng, kq, words), _random_words(rng, kt, words)
+    v = rng.random(kt) >= invalid
+    idx_j, d1_j, d2_j = (np.asarray(a) for a in pk.hamming_top2(jnp.asarray(q), jnp.asarray(t), jnp.asarray(v),
+                                                                  interpret=True))
+    idx, d1, d2 = (a.numpy() for a in ck.hamming_top2(_t32(q), _t32(t), torch.from_numpy(v)))
+    nbits = 32 * words
+    big = float(1 << 20)
+    np.testing.assert_array_equal(d1, np.where(d1_j == big, 1e9, d1_j))
+    np.testing.assert_array_equal(d2, np.where(d2_j == big, 1e9, d2_j))
+    real = d1_j <= nbits
+    np.testing.assert_array_equal(idx[real], idx_j[real])
+    assert real.mean() == (0.0 if invalid == 1.0 else 1.0)
+
+
 def test_hamming_ties_take_lowest_index():
     q = np.zeros((1, 8), np.uint32)
     t = np.zeros((5, 8), np.uint32)
@@ -220,7 +241,8 @@ def test_cpu_tensors_run_the_plain_versions_without_counting():
     ck.extract_patches(img.float()[None], torch.zeros((2, 2)), 31)
     ck.hamming_top2(torch.zeros((2, 8), dtype=torch.int32), torch.zeros((3, 8), dtype=torch.int32),
                     torch.ones(3, dtype=torch.bool))
-    assert ck.LAUNCHES == {"fast_scores_nms": 0, "extract_patches": 0, "hamming_top2": 0}
+    ck.patch_windows(img.float(), torch.zeros(2, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
+    assert ck.LAUNCHES == {"fast_scores_nms": 0, "extract_patches": 0, "hamming_top2": 0, "patch_windows": 0}
 
 
 def test_build_needs_nvcc_and_names_the_library_by_source_hash(tmp_path, monkeypatch):

@@ -148,8 +148,13 @@ def test_detect_and_describe(frame):
     np.testing.assert_array_equal(out[1], ref[1])
     valid = ref[3]
     assert (out[2].view(np.uint32) == ref[2]).all(axis=1)[valid].mean() >= 0.99
-    with pytest.raises(NotImplementedError, match="pyramid"):
-        tbrief.detect_and_describe(torch.from_numpy(img), num_levels=2)
+    # Two pyramid levels: the budget splits 256 + 256, level 0 first.
+    two = tbrief.detect_and_describe(torch.from_numpy(img), threshold=12.0, max_keypoints=512, border=19,
+                                     num_levels=2)
+    assert [tuple(a.shape) for a in two] == [(512, 2), (512,), (512, 8), (512,)]
+    top = tbrief.detect_and_describe(torch.from_numpy(img), threshold=12.0, max_keypoints=256, border=19)
+    for a, b in zip(two, top):
+        assert torch.equal(a[:256], b)
 
 
 def test_pack_unpack_bits():
@@ -182,9 +187,10 @@ def test_quantize_angle_and_tables():
 def test_descriptor_registry():
     fam = tdesc.get_family("ORB")
     assert (fam.name, fam.words, fam.distance) == ("orb", 8, "hamming")
-    assert tdesc.registered_families() == ["orb"]
-    with pytest.raises(ValueError, match="unknown descriptor family 'brisk'"):
-        tdesc.get_family("brisk")
+    assert tdesc.registered_families() == ["akaze", "brisk", "freak", "orb"]
+    assert tdesc.get_family("BRISK").words == 16
+    with pytest.raises(ValueError, match="unknown descriptor family 'sift'"):
+        tdesc.get_family("sift")
 
 
 # ---------------------------------------------------------------------------
@@ -361,14 +367,13 @@ def test_config_derived_matrices(calib):
 
 
 def test_config_rejects_options_not_ported():
-    with pytest.raises(NotImplementedError, match="pyramid"):
-        FrontendConfig(num_levels=3)
+    assert FrontendConfig(num_levels=3, descriptor_family="akaze").num_levels == 3  # ported now
     with pytest.raises(NotImplementedError, match="debug_images"):
         FrontendConfig(debug_images=True)
     with pytest.raises(NotImplementedError, match="validate"):
         FrontendConfig(validate=True)
     with pytest.raises(ValueError, match="unknown descriptor family"):
-        FrontendConfig(descriptor_family="akaze")
+        FrontendConfig(descriptor_family="sift")
 
 
 def test_config_load_yaml(tmp_path):

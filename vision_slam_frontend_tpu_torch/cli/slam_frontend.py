@@ -2,7 +2,8 @@
 
 Usage:
   python -m vision_slam_frontend_tpu_torch.cli.slam_frontend \
-      --input synthetic:20 --output /tmp/problem.npz [--device cuda]
+      --input synthetic:20 --output /tmp/problem.npz [--device cuda] \
+      [--descriptor_family orb|brisk|freak|akaze]
 
 Only the synthetic input (`synthetic[:N[:step]]`) is ported; bag, KITTI and
 EuRoC inputs are not yet. The device defaults to `cuda`, where the step runs
@@ -53,6 +54,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_poses", type=int, default=0, help="stop after this many SLAM poses (0 = all)")
     p.add_argument("--max_features", type=int, default=None, help="override feature capacity K")
     p.add_argument("--frame_life", type=int, default=None, help="override temporal window W")
+    p.add_argument(
+        "--descriptor_family", default=None,
+        help="descriptor family from the registry (orb, brisk, freak, akaze): the "
+        "reference's -descriptor_extract_type switch",
+    )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("-v", "--verbosity", type=int, default=0)
     return p
@@ -76,6 +82,8 @@ def main(argv=None) -> int:
         overrides["max_features"] = args.max_features
     if args.frame_life is not None:
         overrides["frame_life"] = args.frame_life
+    if args.descriptor_family is not None:
+        overrides["descriptor_family"] = args.descriptor_family
     config = FrontendConfig(calib=SyntheticRig().calib(), fast_threshold=12.0, **overrides)
     frontend = Frontend(config, device=device)
     frontend.verbosity = args.verbosity

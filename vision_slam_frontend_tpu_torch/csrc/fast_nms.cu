@@ -1,4 +1,5 @@
-// FAST-9 corner score + strict 3x3 non-maximum suppression over a uint8 image.
+// FAST-9 corner score + strict 3x3 non-maximum suppression over a uint8 or
+// float32 image (float32: the resized levels of the image pyramid).
 //
 // Replaces the Pallas kernel `fast_scores_nms` / `_fast_kernel`
 // (vision_slam_frontend_tpu/ops/pallas_kernels.py). Same contract: the score
@@ -8,12 +9,12 @@
 // strictly greater than all 8 neighbours (-inf elsewhere). The image is
 // zero-padded outside its bounds, as the Pallas kernel pads it.
 //
-// What bounds it on the H100: it reads H*W bytes and writes 8*H*W bytes (two
-// f32 maps, 2.5 MB at 640x480), far below what the card moves in a few
-// microseconds; the 16 arcs x 9 taps x 2 polarities of integer min/max per
-// pixel are the work. Design: one block per 32x16 output tile. The u8 tile
-// and its 4-pixel halo (ring radius 3 + NMS radius 1) are loaded once into
-// shared memory; scores for the tile plus a 1-pixel ring go to shared memory;
+// What bounds it on the H100: it reads H*W pixels (1 or 4 bytes each) and
+// writes 8*H*W bytes (two f32 maps, 2.5 MB at 640x480), far below what the
+// card moves in a few microseconds; the 16 arcs x 9 taps x 2 polarities of
+// min/max per pixel are the work. Design: one block per 32x16 output tile.
+// The tile and its 4-pixel halo (ring radius 3 + NMS radius 1) are loaded
+// once into shared memory as float (a uint8 converts exactly); scores for the tile plus a 1-pixel ring go to shared memory;
 // the NMS reads its 8 neighbours from there. Every image byte is read from
 // device memory once per tile, and the score map never goes through device
 // memory between the score and the NMS pass.
@@ -35,12 +36,14 @@ constexpr int kScoreH = kTileH + 2;
 // Offset of ring pixel (dy, dx) in the row-major shared tile.
 __host__ __device__ constexpr int ring(int dy, int dx) { return dy * kSmemW + dx; }
 
-// The score in float: the values are integers in [-255, 255], so every min,
-// max and negation is exact. (The same max-of-min chain in int, built with
-// nvcc 12.9 for sm_90a at ptxas -O1 or above, returned max(ring - centre)
-// instead; the float form is right at every level.)
-__device__ __forceinline__ float fast_score(const uint8_t* tile, int sy, int sx) {
-  const uint8_t* p = tile + sy * kSmemW + sx;
+// The score in float. Every ring - centre difference is one rounded f32
+// subtraction, as in the reference; min, max and negation are exact. For a
+// uint8 image the values are integers in [-255, 255]. (The same max-of-min
+// chain in int, built with nvcc 12.9 for sm_90a at ptxas -O1 or above,
+// returned max(ring - centre) instead; the float form is right at every
+// level.)
+__device__ __forceinline__ float fast_score(const float* tile, int sy, int sx) {
+  const float* p = tile + sy * kSmemW + sx;
   const float c = p[0];
   // The ring, clockwise from 12 o'clock (ops/fast.py RING_OFFSETS), minus the centre.
   const float d[16] = {
@@ -66,9 +69,10 @@ __device__ __forceinline__ float fast_score(const uint8_t* tile, int sy, int sx)
   return best;
 }
 
-__global__ void fast_nms_kernel(const uint8_t* __restrict__ img, int H, int W,
+template <typename T>
+__global__ void fast_nms_kernel(const T* __restrict__ img, int H, int W,
                                 float* __restrict__ raw, float* __restrict__ sup) {
-  __shared__ uint8_t tile[kSmemH][kSmemW];
+  __shared__ float tile[kSmemH][kSmemW];
   __shared__ float score[kScoreH][kScoreW];
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
@@ -80,7 +84,9 @@ __global__ void fast_nms_kernel(const uint8_t* __restrict__ img, int H, int W,
     const int tx = i - ty * kSmemW;
     const int gy = y0 - kHalo + ty;
     const int gx = x0 - kHalo + tx;
-    tile[ty][tx] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? img[gy * W + gx] : 0;
+    tile[ty][tx] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                       ? static_cast<float>(img[static_cast<size_t>(gy) * W + gx])
+                       : 0.0f;
   }
   __syncthreads();
 
@@ -107,20 +113,27 @@ __global__ void fast_nms_kernel(const uint8_t* __restrict__ img, int H, int W,
         if (dy != 0 || dx != 0) m = fmaxf(m, score[oy + 1 + dy][ox + 1 + dx]);
       }
     }
-    raw[gy * W + gx] = c;
-    sup[gy * W + gx] = c > m ? c : -INFINITY;
+    const size_t o = static_cast<size_t>(gy) * W + gx;
+    raw[o] = c;
+    sup[o] = c > m ? c : -INFINITY;
   }
 }
 
 }  // namespace
 
-extern "C" int vsf_fast_scores_nms(const void* img, int H, int W, void* raw, void* sup,
-                                   void* stream) {
+// is_float: 0 for a uint8 image, 1 for a float32 one.
+extern "C" int vsf_fast_scores_nms(const void* img, int is_float, int H, int W, void* raw,
+                                   void* sup, void* stream) {
   const dim3 block(32, 8);
   const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH);
-  fast_nms_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), H, W, static_cast<float*>(raw),
-      static_cast<float*>(sup));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* r = static_cast<float*>(raw);
+  float* o = static_cast<float*>(sup);
+  if (is_float) {
+    fast_nms_kernel<float><<<grid, block, 0, s>>>(static_cast<const float*>(img), H, W, r, o);
+  } else {
+    fast_nms_kernel<uint8_t><<<grid, block, 0, s>>>(static_cast<const uint8_t*>(img), H, W, r, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

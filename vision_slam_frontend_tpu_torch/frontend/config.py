@@ -2,7 +2,8 @@
 
 Same fields, defaults and derived matrices as the JAX package's
 FrontendConfig, computed with numpy, so the port runs where JAX is not
-installed. Options whose code is not ported yet raise NotImplementedError.
+installed. Options whose code is not ported yet (debug images, the
+validator) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ class FrontendConfig:
     max_features: int = 512                     # K: per-frame feature capacity
     blur_sigma: float = 2.0
     detect_border: int = 19                     # PATCH_RADIUS + 4
-    num_levels: int = 1                         # pyramid levels; only 1 is ported
+    num_levels: int = 1                         # pyramid levels (AKAZE: evolution levels)
     pyramid_scale: float = 1.4
 
     # --- calibration ---
@@ -91,7 +92,6 @@ class FrontendConfig:
     def __post_init__(self):
         get_family(self.descriptor_family)
         for name, asked in (
-            ("num_levels > 1 (image pyramid)", self.num_levels != 1),
             ("debug_images", self.debug_images),
             ("validate", self.validate),
         ):

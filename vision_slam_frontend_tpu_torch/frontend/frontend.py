@@ -150,6 +150,7 @@ class Frontend:
             border=self.config.detect_border,
             blur_sigma=self.config.blur_sigma,
             num_levels=self.config.num_levels,
+            scale_factor=self.config.pyramid_scale,
             descriptor_family=self.config.descriptor_family,
             mutual_check=self.config.mutual_check,
             curr_pose_t=pose[:3],

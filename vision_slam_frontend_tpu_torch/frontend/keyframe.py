@@ -160,6 +160,7 @@ def keyframe_step(
     border: int = 19,
     blur_sigma: float = 2.0,
     num_levels: int = 1,
+    scale_factor: float = 1.4,
     descriptor_family: str = "orb",
     mutual_check: bool = True,
     curr_pose_t: torch.Tensor | None = None,
@@ -179,11 +180,11 @@ def keyframe_step(
     extract = get_family(descriptor_family).extractor
     l_kps, _, l_desc, l_valid = extract(
         left_image, threshold=params.fast_threshold, max_keypoints=K,
-        border=border, blur_sigma=blur_sigma, num_levels=num_levels,
+        border=border, blur_sigma=blur_sigma, num_levels=num_levels, scale_factor=scale_factor,
     )
     r_kps, _, r_desc, r_valid = extract(
         right_image, threshold=params.fast_threshold, max_keypoints=K,
-        border=border, blur_sigma=blur_sigma, num_levels=num_levels,
+        border=border, blur_sigma=blur_sigma, num_levels=num_levels, scale_factor=scale_factor,
     )
 
     # --- 2. Stereo ratio-test match, left queries vs right trains.

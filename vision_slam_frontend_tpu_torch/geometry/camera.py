@@ -67,6 +67,14 @@ def undistort_points(intr: Intrinsics, pixels: torch.Tensor, num_iters: int = 8)
     return torch.stack([x * intr.fx + intr.cx, y * intr.fy + intr.cy], dim=-1)
 
 
+def _unit_rows(r: torch.Tensor) -> torch.Tensor:
+    """Rows of a (..., 4) tensor scaled to unit length (norms below 1e-12
+    clamp), the squares summed in a fixed order."""
+    sq = r * r
+    norm = (sq[..., 0] + sq[..., 1] + sq[..., 2] + sq[..., 3]).sqrt()
+    return r / norm.clamp(min=1e-12)[..., None]
+
+
 def triangulate_points(
     proj_left: torch.Tensor,
     proj_right: torch.Tensor,
@@ -81,7 +89,11 @@ def triangulate_points(
     closed form (adjugate / determinant). The solve runs in float64: the
     normal equations square the system's condition number, and in float32
     (as the JAX package computes them) near-rectified stereo pairs lose up
-    to ~4e-3 relative on the synthetic world."""
+    to ~4e-3 relative on the synthetic world. Every sum is written out in a
+    fixed order (no einsum, no norm reduction), so the CPU and the card give
+    the same bits: a distant point's system is so ill-conditioned that a
+    last-bit difference in the normal equations moves it by metres, and the
+    guided gate of the next keyframe reads it."""
     dtype = pixels_left.dtype
     proj_left, proj_right, pixels_left, pixels_right = (
         t.to(torch.float64) for t in (proj_left, proj_right, pixels_left, pixels_right)
@@ -92,17 +104,18 @@ def triangulate_points(
         v = px[..., 1:2]
         r1 = u * P[2][None, :] - P[0][None, :]
         r2 = v * P[2][None, :] - P[1][None, :]
-        r1 = r1 / torch.linalg.norm(r1, dim=-1, keepdim=True).clamp(min=1e-12)
-        r2 = r2 / torch.linalg.norm(r2, dim=-1, keepdim=True).clamp(min=1e-12)
-        return r1, r2
+        return _unit_rows(r1), _unit_rows(r2)
 
     l1, l2 = rows(proj_left, pixels_left)
     r1, r2 = rows(proj_right, pixels_right)
     A = torch.stack([l1, l2, r1, r2], dim=-2)  # (N, 4, 4)
     B = A[..., :3]
     b = -A[..., 3]
-    M = torch.einsum("nij,nik->njk", B, B)
-    v = torch.einsum("nij,ni->nj", B, b)
+    # M = B^T B and v = B^T b, summed over the 4 rows in order.
+    prod_M = B[..., :, :, None] * B[..., :, None, :]  # (N, 4, 3, 3)
+    prod_v = B * b[..., None]  # (N, 4, 3)
+    M = prod_M[..., 0, :, :] + prod_M[..., 1, :, :] + prod_M[..., 2, :, :] + prod_M[..., 3, :, :]
+    v = prod_v[..., 0, :] + prod_v[..., 1, :] + prod_v[..., 2, :] + prod_v[..., 3, :]
 
     m00, m01, m02 = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
     m11, m12, m22 = M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]

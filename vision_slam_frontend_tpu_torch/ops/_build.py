@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-The sources in `csrc/` compile with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface. It lands in `build/torch_kernels/`
+The sources in `csrc/` compile with nvcc for Hopper (sm_90a), one nvcc
+process per source, all started together, and link into one shared library
+with a plain C interface. It lands in `build/torch_kernels/`
 at the root of the checkout, named by a hash of the sources and flags, so an
 edited `.cu` file builds a new library. Nothing is built at import time: the
 first call of a kernel wrapper on a CUDA tensor builds and loads it.
@@ -19,20 +20,21 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("fast_nms.cu", "extract_patches.cu", "hamming_top2.cu")
+SOURCES = ("fast_nms.cu", "extract_patches.cu", "hamming_top2.cu", "patch_windows.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # name: (argtypes, restype)
-    "vsf_fast_scores_nms": ((_P, _I, _I, _P, _P, _P), _I),
+    "vsf_fast_scores_nms": ((_P, _I, _I, _I, _P, _P, _P), _I),
     "vsf_extract_patches": ((_P, _I, _I, _I, _I, _P, _I, _I, _P, _P), _I),
     "vsf_hamming_top2": ((_P, _P, _P, _I, _I, _I, _P, _P, _P, _P), _I),
+    "vsf_patch_windows": ((_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P), _I),
     "vsf_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -63,19 +65,42 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvsf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _check(proc: subprocess.Popen, cmd: list[str]) -> None:
+    output = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{output}")
+
+
 def _build(out: Path) -> None:
+    """Compile every source at once (one nvcc each), then link."""
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    objects = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    jobs = []
+    for src, obj in zip(SOURCES, objects):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+        jobs.append((_run(cmd), cmd))
+    try:
+        for proc, cmd in jobs:
+            _check(proc, cmd)
+    finally:
+        for proc, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objects)]
+    _check(_run(cmd), cmd)
     os.replace(tmp, out)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
 
 

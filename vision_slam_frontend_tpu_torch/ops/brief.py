@@ -1,6 +1,6 @@
 """Rotation-steered BRIEF (ORB-class) binary descriptors (port of ops/brief.py).
 
-One pyramid level. Per keypoint: the 31x31 patch of the f16-quantized
+Per keypoint and pyramid level: the 31x31 patch of the f16-quantized
 blurred image (the patch kernel, ops/cuda_kernels.extract_patches), its
 intensity-centroid angle, the angle's rotation bin, and the bin's 256 pair
 comparisons packed into 8 words. Descriptor words are int32 tensors holding
@@ -14,7 +14,7 @@ import torch
 
 from vision_slam_frontend_tpu_torch.ops.cuda_kernels import extract_patches
 from vision_slam_frontend_tpu_torch.ops.fast import fast_detect
-from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur
+from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear
 
 PATCH_RADIUS = 15  # 31x31 patch, as in ORB
 NUM_BITS = 256
@@ -146,6 +146,56 @@ def orient_and_describe(
     return theta, torch.where(valid[:, None], packed, 0)
 
 
+def level_budgets(max_keypoints: int, num_levels: int) -> list[int]:
+    """The keypoint budget of each level: an even split, the last level
+    taking the remainder."""
+    budget = max_keypoints // num_levels
+    return [budget] * (num_levels - 1) + [max_keypoints - budget * (num_levels - 1)]
+
+
+def pyramid_levels(
+    image: torch.Tensor, num_levels: int, scale_factor: float, border: int,
+    max_keypoints: int,
+):
+    """The reference's image pyramid: (level image, keypoint budget, scale)
+    per level. Level 0 is `image` itself; level l > 0 is the image resized
+    (ops/image.resize_linear) to max(round(dim / scale), 2 * border + 8) at
+    scale = scale_factor ** l. Budgets as level_budgets."""
+    H, W = image.shape
+    budgets = level_budgets(max_keypoints, num_levels)
+    image_f = image.to(torch.float32)
+    levels = [(image, budgets[0], 1.0)]
+    scale = 1.0
+    for lvl in range(1, num_levels):
+        scale *= scale_factor
+        h = max(int(round(H / scale)), 2 * border + 8)
+        w = max(int(round(W / scale)), 2 * border + 8)
+        levels.append((resize_linear(image_f, (h, w)), budgets[lvl], scale))
+    return levels
+
+
+def concat_levels(per_level):
+    """Concatenate per-level (keypoints, scores, descriptors, valid) in
+    level order."""
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*per_level))
+
+
+def extract_over_levels(describe, image: torch.Tensor, threshold, max_keypoints: int, border: int,
+                        num_levels: int, scale_factor: float):
+    """FAST detect -> `describe(level image f32, keypoints, valid) ->
+    descriptors` on each pyramid level (pyramid_levels); keypoints at
+    level-0 scale, levels concatenated in order."""
+    per_level = []
+    for level_img, budget, scale in pyramid_levels(image, max(num_levels, 1), scale_factor, border,
+                                                   max_keypoints):
+        kps, scores, valid = fast_detect(level_img, threshold=threshold, max_keypoints=budget, border=border)
+        desc = describe(level_img.to(torch.float32), kps, valid)
+        per_level.append((kps * scale if scale != 1.0 else kps, scores, desc, valid))
+    if len(per_level) == 1:
+        return per_level[0]
+    return concat_levels(per_level)
+
+
 def detect_and_describe(
     image: torch.Tensor,
     threshold: float | torch.Tensor = 10.0,
@@ -153,16 +203,16 @@ def detect_and_describe(
     border: int = PATCH_RADIUS + 4,
     blur_sigma: float = 2.0,
     num_levels: int = 1,
+    scale_factor: float = 1.4,
 ):
-    """FAST detect -> blur -> orient -> steered BRIEF on a (H, W) uint8 image.
+    """FAST detect -> blur -> orient -> steered BRIEF on a (H, W) uint8
+    image, over `num_levels` pyramid levels; keypoints are reported at
+    level-0 scale.
 
     Returns (keypoints (K, 2), scores (K,), descriptors (K, 8) int32,
     valid (K,))."""
-    if num_levels != 1:
-        raise NotImplementedError("image pyramid (num_levels > 1) is not ported yet")
-    keypoints, scores, valid = fast_detect(
-        image, threshold=threshold, max_keypoints=max_keypoints, border=border
-    )
-    blurred = gaussian_blur(image.to(torch.float32), sigma=blur_sigma)
-    _, descriptors = orient_and_describe(blurred, keypoints, valid)
-    return keypoints, scores, descriptors, valid
+
+    def describe(level_img, keypoints, valid):
+        return orient_and_describe(gaussian_blur(level_img, sigma=blur_sigma), keypoints, valid)[1]
+
+    return extract_over_levels(describe, image, threshold, max_keypoints, border, num_levels, scale_factor)

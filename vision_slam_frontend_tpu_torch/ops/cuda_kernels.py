@@ -1,4 +1,4 @@
-"""The frontend's three hand-written CUDA kernels, with their plain versions.
+"""The port's hand-written CUDA kernels, with their plain versions.
 
 Each wrapper takes the TPU kernel's contract (ops/pallas_kernels.py in the
 JAX package) and checks device, dtype, shape and contiguity. On a CUDA tensor
@@ -12,7 +12,9 @@ count), so a run can show that its path went through the kernels.
 Kernels (source, TPU kernel replaced):
   fast_scores_nms  csrc/fast_nms.cu         pallas_kernels.fast_scores_nms
   extract_patches  csrc/extract_patches.cu  pallas_kernels.extract_patches_vmem
-  hamming_top2     csrc/hamming_top2.cu     pallas_kernels.hamming_top2_mxu
+  hamming_top2     csrc/hamming_top2.cu     pallas_kernels.hamming_top2_mxu and
+                                            pallas_kernels.hamming_top2
+  patch_windows    csrc/patch_windows.cu    probe_kernel_variants.run_variant
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = {"fast_scores_nms": 0, "extract_patches": 0, "hamming_top2": 0}
+LAUNCHES = {"fast_scores_nms": 0, "extract_patches": 0, "hamming_top2": 0, "patch_windows": 0}
 
 # The FAST ring (ops/fast.py RING_OFFSETS): radius-3 Bresenham circle,
 # clockwise from 12 o'clock, as (dy, dx).
@@ -74,25 +76,28 @@ def _dispatch_device(t: torch.Tensor, name: str) -> bool:
 
 
 def fast_scores_nms(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(H, W) uint8 image -> (raw, suppressed) (H, W) float32 score maps.
+    """(H, W) uint8 or float32 image -> (raw, suppressed) (H, W) float32
+    score maps.
 
     `raw` is the FAST-9 score of every pixel with the image zero-padded
     outside its bounds; `suppressed` is `raw` where it is strictly greater
     than all 8 neighbours and -inf elsewhere. Callers mask the 3-pixel border
     (ops/fast.fast_detect)."""
-    _require(image.dim() == 2 and image.dtype == torch.uint8,
-             f"fast_scores_nms: expected a (H, W) uint8 image, got {tuple(image.shape)} {image.dtype}")
+    _require(image.dim() == 2 and image.dtype in (torch.uint8, torch.float32),
+             f"fast_scores_nms: expected a (H, W) uint8 or float32 image, got {tuple(image.shape)} {image.dtype}")
     if not _dispatch_device(image, "fast_scores_nms"):
         return fast_scores_nms_plain(image)
     H, W = image.shape
     raw = torch.empty((H, W), dtype=torch.float32, device=image.device)
     sup = torch.empty_like(raw)
-    _launch("fast_scores_nms", image.device, image.data_ptr(), H, W, raw.data_ptr(), sup.data_ptr())
+    _launch("fast_scores_nms", image.device, image.data_ptr(), int(image.dtype == torch.float32),
+            H, W, raw.data_ptr(), sup.data_ptr())
     return raw, sup
 
 
 def fast_scores_nms_plain(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of `fast_scores_nms`."""
+    """Plain PyTorch version of `fast_scores_nms`: the same f32 differences,
+    mins and maxes, so its output equals the kernel's bit for bit."""
     H, W = image.shape
     img = F.pad(image.to(torch.float32), (4, 4, 4, 4))  # zeros outside
     rows, cols = H + 2, W + 2  # the image plus a 1-pixel ring for the NMS
@@ -125,7 +130,8 @@ def fast_scores_nms_plain(image: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
 def extract_patches(planes: torch.Tensor, keypoints: torch.Tensor, ps: int = 31) -> torch.Tensor:
     """(C, H, W) planes + (K, 2) float32 (x, y) keypoints -> (K, C, ps*ps).
 
-    Patch k starts at clip(round(kp) - ps // 2, 0, dim - ps) with
+    Any C and ps: ORB reads C=1, ps=31 (f16), BRISK C=5 and FREAK C=7 at
+    ps=27, AKAZE C=3 at ps=31 (f32). Patch k starts at clip(round(kp) - ps // 2, 0, dim - ps) with
     round-half-to-even; values keep the planes' dtype (f16 or f32)."""
     _require(planes.dim() == 3 and planes.dtype in (torch.float16, torch.float32),
              f"extract_patches: expected (C, H, W) f16/f32 planes, got {tuple(planes.shape)} {planes.dtype}")
@@ -171,7 +177,11 @@ def hamming_top2(
 
     Returns (best_idx (Kq,) int32, d1 (Kq,) f32, d2 (Kq,) f32): the lowest
     index wins ties, invalid trains are ignored, 1e9 where no valid train is
-    left. words is 8 (256-bit) or 16 (512-bit)."""
+    left. words is 8 (256-bit, ORB) or 16 (512-bit, BRISK, FREAK, AKAZE).
+
+    One kernel serves both TPU kernels of this contract: the ±1 bf16 product
+    of `hamming_top2_mxu` and the XOR + popcount of `hamming_top2`, whose
+    arithmetic it runs (the TPU sentinels 3e9 and 1 << 20 become 1e9)."""
     _require(desc_q.dim() == 2 and desc_t.dim() == 2 and desc_q.shape[1] == desc_t.shape[1],
              f"hamming_top2: shapes {tuple(desc_q.shape)} vs {tuple(desc_t.shape)}")
     _require(desc_q.dtype == torch.int32 and desc_t.dtype == torch.int32,
@@ -210,3 +220,62 @@ def hamming_top2_plain(
     bt = unpack_bits(desc_t)
     dist = bq.sum(1)[:, None] + bt.sum(1)[None, :] - 2.0 * (bq @ bt.T)
     return knn2_match(dist, valid_t)
+
+
+# ---------------------------------------------------------------------------
+# B5: dynamic-row window gather (the TPU toolchain probe's function)
+# ---------------------------------------------------------------------------
+
+WINDOW_COLS = 32  # the probe's lane width LW
+WINDOW_ROWS = (31, 32)
+WINDOW_BLOCKS = (8, 64)
+
+
+def patch_windows(
+    image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, rows: int = 32,
+    shifted: bool = False, block: int = 64,
+) -> torch.Tensor:
+    """(H, W) float32 image, (K,) int32 row starts `ys` and column starts
+    `xs` -> (K, rows, 32) float32 windows.
+
+    Window k is P[ys[k] : ys[k] + rows, c0 : c0 + 32] of the image padded
+    with zeros (the probe pads (0, 8) rows and (0, 32) columns; reads beyond
+    that are zeros too), where c0 = xs[k] if `shifted` else 0. `block` is the
+    number of keypoints one CUDA block copies (the probe's 64 or 8); it does
+    not change the result."""
+    _require(image.dim() == 2 and image.dtype == torch.float32,
+             f"patch_windows: expected a (H, W) float32 image, got {tuple(image.shape)} {image.dtype}")
+    _require(ys.dim() == 1 and ys.dtype == torch.int32 and xs.shape == ys.shape and xs.dtype == torch.int32,
+             f"patch_windows: expected (K,) int32 ys and xs, got {tuple(ys.shape)} {ys.dtype}, "
+             f"{tuple(xs.shape)} {xs.dtype}")
+    _require(rows in WINDOW_ROWS, f"patch_windows: rows must be one of {WINDOW_ROWS}, got {rows}")
+    _require(block in WINDOW_BLOCKS, f"patch_windows: block must be one of {WINDOW_BLOCKS}, got {block}")
+    _require(image.device == ys.device == xs.device, "patch_windows: tensors on different devices")
+    if not _dispatch_device(image, "patch_windows"):
+        return patch_windows_plain(image, ys, xs, rows, shifted, block)
+    _require(ys.is_contiguous() and xs.is_contiguous(), "patch_windows: ys and xs must be contiguous")
+    H, W = image.shape
+    K = ys.shape[0]
+    out = torch.empty((K, rows, WINDOW_COLS), dtype=torch.float32, device=image.device)
+    if K == 0:
+        return out
+    _launch("patch_windows", image.device, image.data_ptr(), H, W, ys.data_ptr(), xs.data_ptr(),
+            K, rows, int(shifted), block, out.data_ptr())
+    return out
+
+
+def patch_windows_plain(
+    image: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, rows: int = 32,
+    shifted: bool = False, block: int = 64,
+) -> torch.Tensor:
+    """Plain PyTorch version of `patch_windows`: one index gather, zeros
+    where the window leaves the image."""
+    del block  # the kernel's keypoints per CUDA block
+    H, W = image.shape
+    dev = image.device
+    y = ys.long()[:, None, None] + torch.arange(rows, device=dev)[None, :, None]
+    x0 = xs.long() if shifted else torch.zeros_like(xs, dtype=torch.long)
+    x = x0[:, None, None] + torch.arange(WINDOW_COLS, device=dev)[None, None, :]
+    inside = (y >= 0) & (y < H) & (x >= 0) & (x < W)
+    flat = y.clamp(0, H - 1) * W + x.clamp(0, W - 1)
+    return torch.where(inside, image.reshape(-1)[flat], 0.0)

@@ -2,7 +2,8 @@
 
 The score map and the strict 3x3 NMS come from the FAST kernel
 (ops/cuda_kernels.fast_scores_nms); this module masks the borders, applies
-the threshold, takes the exact top-K and fits the sub-pixel offsets.
+the threshold, takes the exact top-K and fits the sub-pixel offsets (the
+selection tail, `top_k_subpixel`, is shared with the AKAZE detector).
 """
 
 from __future__ import annotations
@@ -11,17 +12,18 @@ import torch
 
 from vision_slam_frontend_tpu_torch.ops.cuda_kernels import RING_OFFSETS, fast_scores_nms
 
-__all__ = ["RING_OFFSETS", "fast_scores", "fast_detect"]
+__all__ = ["RING_OFFSETS", "fast_scores", "fast_detect", "interior", "top_k_subpixel"]
 
 
 def fast_scores(image: torch.Tensor) -> torch.Tensor:
-    """Per-pixel FAST-9 corner score (H, W) float32 of a uint8 image; the
-    3-pixel border, where the ring leaves the image, is -inf."""
+    """Per-pixel FAST-9 corner score (H, W) float32 of a uint8 or float32
+    image; the 3-pixel border, where the ring leaves the image, is -inf."""
     raw, _ = fast_scores_nms(image)
-    return torch.where(_interior(raw, 3), raw, float("-inf"))
+    return torch.where(interior(raw, 3), raw, float("-inf"))
 
 
-def _interior(like: torch.Tensor, margin: int) -> torch.Tensor:
+def interior(like: torch.Tensor, margin: int) -> torch.Tensor:
+    """(H, W) bool: True at least `margin` pixels from every edge."""
     H, W = like.shape
     ys = torch.arange(H, device=like.device)[:, None]
     xs = torch.arange(W, device=like.device)[None, :]
@@ -37,7 +39,7 @@ def fast_detect(
     """Detect up to `max_keypoints` FAST-9 corners with strict NMS.
 
     Args:
-      image: (H, W) uint8.
+      image: (H, W) uint8, or float32 (a resized pyramid level).
       threshold: FAST intensity threshold (a float or a 0-d tensor).
       max_keypoints: top-K capacity.
       border: exclude keypoints within this many pixels of the edge.
@@ -47,16 +49,27 @@ def fast_detect(
       scores (K,) float32, 0 for padding;
       valid (K,) bool.
     """
-    H, W = image.shape
     raw, score = fast_scores_nms(image)
     # The kernel zero-pads where the ring leaves the image: the 3-pixel
     # border is never a corner, whatever `border` asks.
-    in_border = _interior(score, max(border, 3))
+    in_border = interior(score, max(border, 3))
     score = torch.where(in_border & (score > threshold), score, float("-inf"))
+    return top_k_subpixel(score, raw, max_keypoints)
 
-    # Exact top-K with lax.top_k's order: higher score first, lower flat
-    # index first among equal scores (FAST scores are integers, so ties at
-    # the K-th cut are common). A stable descending sort gives exactly that.
+
+def top_k_subpixel(score: torch.Tensor, raw: torch.Tensor, max_keypoints: int):
+    """The detectors' selection tail: the `max_keypoints` best finite
+    entries of a suppressed, thresholded (H, W) score map, each refined by a
+    1-D quadratic fit on the raw response along each axis.
+
+    Exact top-K with lax.top_k's order: higher score first, lower flat index
+    first among equal scores (FAST scores of a uint8 image are integers, so
+    ties at the K-th cut are common). A stable descending sort gives exactly
+    that; `torch.topk` has no tie order.
+
+    Returns (keypoints (K, 2) f32 (x, y), zeros for padding; scores (K,)
+    f32, 0 for padding; valid (K,) bool)."""
+    H, W = score.shape
     top_scores, top_idx = torch.sort(score.reshape(-1), descending=True, stable=True)
     top_scores = top_scores[:max_keypoints]
     top_idx = top_idx[:max_keypoints]
@@ -64,8 +77,7 @@ def fast_detect(
     kxi = top_idx % W
     kyi = top_idx // W
 
-    # Sub-pixel refinement: 1-D quadratic fit on the raw score along each
-    # axis. Valid corners lie >= border from the edge, so their neighbours
+    # Valid keypoints lie inside the detection border, so their neighbours
     # are inside the image; padding entries are clamped and masked below.
     rflat = raw.reshape(-1)
     last = H * W - 1
