@@ -5,14 +5,18 @@
 
 Phases, one line each; any failure ends the run with a non-zero exit:
   1. device   a CUDA device is required (no CPU path); its name and
-              `nvidia-smi` name/power limit
+              `nvidia-smi` name/power limit and maximum SM clock
   2. build    nvcc builds the four kernels from csrc/ (sm_90a), one nvcc per
-              source, all at once
+              source, all at once; each kernel's registers, shared memory
+              and spills as `-Xptxas -v` reports them
   3. kernels  each kernel against its plain PyTorch version on the card, on
               the same inputs, at every shape the paths give it: FAST on
               uint8 and float32 frames and a pyramid level; patches for ORB,
-              BRISK, FREAK and AKAZE; Hamming at 8 and 16 words; the window
-              gather's five cases. Exact equality
+              BRISK, FREAK, AKAZE and a pyramid level; Hamming at 8 and 16 words and at
+              8192x8192; the window gather's five cases; then the edge cases
+              of ops/edge_cases.py (Hamming ties at tile and block
+              boundaries, ragged and tiny train sets; FAST at ragged sizes,
+              constant images, plateaus, a checkerboard). Exact equality
   4. parity   keyframe_step on CUDA vs on the CPU from the same state: the
               default ORB slice for 4 synthetic keyframes, then BRISK, FREAK,
               AKAZE and the 3-level ORB pyramid for 2 each (640x480, K=512,
@@ -27,10 +31,17 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               configuration under sync-debug mode "error"
   6. timing   median keyframe step time (synced, and host enqueue) per
               configuration with one profiled step's launches and device
-              time (torch.profiler), and each kernel
-              at each shape beside its plain version, one PyTorch call that
-              computes the same function where there is one, and its bound
-              (CUDA events, median of 30 launches)
+              time (torch.profiler), and each kernel at each shape: its
+              device time per launch (utils/cuda_timing.device_ms: 50
+              launches in one CUDA graph, replayed behind a stream spin so
+              the host cannot starve the window, median of 5), beside its
+              plain version and one PyTorch call that computes the same
+              function where there is one (timed the same way), its cost per
+              call (CUDA events around one call), and its bound; at each
+              kernel's main shape, torch.profiler's kernel durations as a
+              cross-check; the Hamming window shape's +-1 int8 product
+              alone through torch._int_mm (product_ms, a yardstick); and the
+              launch floor, a 1-element fill timed the same way
 Then a JSON line of every kernel shape's numbers, the kernels JSON line and,
 last, the result line.
 """
@@ -53,30 +64,45 @@ MAIN_INPUT = "synthetic:20"
 FAMILY_INPUT = "synthetic:8"
 FAMILY_FRAMES = 8
 TIMING_KEYFRAMES = 20
-TIMING_RUNS = 30
 
 # The H100's published peaks (NVIDIA data sheet, SXM, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 INT8_TENSOR_OPS_PER_S = 1979e12
+# Issue rates per SM per clock (Hopper): min/max (FMNMX) at half the FP32
+# add/multiply rate. Times the SM count and nvidia-smi's maximum SM clock.
+SMS = 132
+FMNMX_PER_CLOCK_SM = 64
+FADD_PER_CLOCK_SM = 128
+# FAST-9 + NMS per pixel: 16 ring - centre subtractions; 128 arc min/max by
+# doubling (min and max of 2, 4, 8, 9 neighbours at 16 starts) and 32 for the
+# two polarities and the best start, two values per instruction (half2) on a
+# uint8 image, whose differences are exact in fp16; 8 NMS maxima and 1 compare.
+FAST_SUBS_PER_PIXEL = 16
+FAST_ARC_MINMAX_PER_PIXEL = 128 + 32
+FAST_NMS_PER_PIXEL = 9
 
-# Kernel name -> (CUDA source, the TPU kernel(s) it replaces).
+# Kernel name -> (CUDA source, the TPU kernel(s) it replaces, a substring of
+# its CUDA kernel's symbol for torch.profiler).
 KERNELS = {
     "fast_scores_nms": (
         "vision_slam_frontend_tpu_torch/csrc/fast_nms.cu",
         "vision_slam_frontend_tpu/ops/pallas_kernels.py:331",
+        "fast_nms_kernel",
     ),
     "extract_patches": (
         "vision_slam_frontend_tpu_torch/csrc/extract_patches.cu",
         "vision_slam_frontend_tpu/ops/pallas_kernels.py:394",
+        "extract_patches_kernel",
     ),
     "hamming_top2": (
         "vision_slam_frontend_tpu_torch/csrc/hamming_top2.cu",
         "vision_slam_frontend_tpu/ops/pallas_kernels.py:193 and vision_slam_frontend_tpu/ops/pallas_kernels.py:89",
+        "hamming_top2_kernel",
     ),
     "patch_windows": (
         "vision_slam_frontend_tpu_torch/csrc/patch_windows.cu",
         "probe_kernel_variants.py:22",
+        "patch_windows_kernel",
     ),
 }
 # The shape of each kernel that the kernels line reports (the others are on
@@ -95,6 +121,14 @@ CONFIGS = {
     "akaze": {"descriptor_family": "akaze"},
     "orb_pyramid": {"num_levels": 3},
 }
+
+
+def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
+    """The first card's `nvidia-smi --query-gpu=<query>` line."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def say(phase: str, msg: str) -> None:
@@ -166,19 +200,19 @@ def u8(img: np.ndarray) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """Median device time of one call of `fn`, by CUDA events, after warm-up."""
-    from vision_slam_frontend_tpu_torch.ops.kernel_variants import cuda_ms as event_ms
-
-    return event_ms(fn, runs)
-
-
-def bound(bytes_moved: float, ops: float = 0.0, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+def bound(bytes_moved: float, op_seconds: float = 0.0) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
-    bytes over the memory rate and the operations over their peak rate."""
+    bytes over the memory rate and the operations' time at their peak rate."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / ops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    return max(t_bytes, op_seconds) * 1e3, ("operations" if op_seconds > t_bytes else "bytes")
+
+
+def fast_op_seconds(pixels: int, sm_hz: float, arc_values_per_op: int) -> float:
+    """Least time of FAST-9 + NMS over `pixels` at the issue rates of its
+    instructions (min/max at 64, subtraction at 128 per clock per SM), the
+    arcs' min/max at `arc_values_per_op` values per instruction."""
+    minmax = FAST_ARC_MINMAX_PER_PIXEL / arc_values_per_op + FAST_NMS_PER_PIXEL
+    return pixels * (minmax / FMNMX_PER_CLOCK_SM + FAST_SUBS_PER_PIXEL / FADD_PER_CLOCK_SM) / (SMS * sm_hz)
 
 
 def covered_pixels(ys, xs, rows: int, cols: int, H: int, W: int) -> int:
@@ -200,12 +234,13 @@ def covered_pixels(ys, xs, rows: int, cols: int, H: int, W: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(ck, frames, dev):
+def kernel_cases(ck, frames, dev, sm_hz):
     """[{kernel, shape, kernel fn, plain fn, library fn or None, bound_ms,
-    bound_by}] at the main paths' shapes, on the card."""
+    bound_by}] at the main paths' shapes, on the card; `sm_hz` is the SM
+    clock the FAST bound counts."""
     import torch
 
-    from vision_slam_frontend_tpu_torch.ops import akaze, brisk, freak
+    from vision_slam_frontend_tpu_torch.ops import akaze, brief, brisk, freak
     from vision_slam_frontend_tpu_torch.ops.fast import fast_detect
     from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear
 
@@ -218,7 +253,8 @@ def kernel_cases(ck, frames, dev):
     for label, im in (("640x480 u8", img), ("640x480 f32", gaussian_blur(img.float(), sigma=1.0)),
                       ("457x343 f32 level", level)):
         h, w = im.shape
-        b_ms, b_by = bound(h * w * (im.element_size() + 8), ops=313.0 * h * w)
+        b_ms, b_by = bound(h * w * (im.element_size() + 8),
+                           fast_op_seconds(h * w, sm_hz, 2 if im.dtype == torch.uint8 else 1))
         cases.append(dict(kernel="fast_scores_nms", shape=label, kernel_fn=lambda im=im: ck.fast_scores_nms(im),
                           plain_fn=lambda im=im: ck.fast_scores_nms_plain(im), library_fn=None,
                           bound_ms=b_ms, bound_by=b_by))
@@ -235,39 +271,45 @@ def kernel_cases(ck, frames, dev):
     imf = img.float()
     L = akaze.build_scale_space(imf, 1, 1.4)[0]
     Lx, Ly = akaze.grad_central(L)
-    for label, planes, ps in (
-        ("ORB K=512 C=1 ps=31 f16", gaussian_blur(imf).to(torch.float16)[None], 31),
-        ("BRISK K=512 C=5 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in brisk.SIGMAS]), 27),
-        ("FREAK K=512 C=7 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in freak.SIGMAS]), 27),
-        ("AKAZE K=512 C=3 ps=31 f32", torch.stack([L, Lx, Ly]), 31),
+    # The pyramid's second level: its share of the budget (brief.level_budgets)
+    # at the level's coordinates.
+    level_kps = (kps[: brief.level_budgets(512, 3)[1]] / 1.4).contiguous()
+    for label, planes, ps, k_in in (
+        ("ORB K=512 C=1 ps=31 f16", gaussian_blur(imf).to(torch.float16)[None], 31, kps),
+        ("BRISK K=512 C=5 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in brisk.SIGMAS]), 27, kps),
+        ("FREAK K=512 C=7 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in freak.SIGMAS]), 27, kps),
+        ("AKAZE K=512 C=3 ps=31 f32", torch.stack([L, Lx, Ly]), 31, kps),
+        (f"ORB pyramid level 457x343 K={len(level_kps)} C=1 ps=31 f16",
+         gaussian_blur(level).to(torch.float16)[None], 31, level_kps),
     ):
         planes = planes.contiguous()
-        C = planes.shape[0]
+        C, H, W = planes.shape
         r = ps // 2
-        xs = (torch.round(kps[:, 0]).long() - r).clamp(0, W - ps)
-        ys = (torch.round(kps[:, 1]).long() - r).clamp(0, H - ps)
+        xs = (torch.round(k_in[:, 0]).long() - r).clamp(0, W - ps)
+        ys = (torch.round(k_in[:, 1]).long() - r).clamp(0, H - ps)
         off = torch.arange(ps, device=dev)
         r_idx = (ys[:, None, None] + off[None, :, None]).expand(-1, ps, ps)
         c_idx = (xs[:, None, None] + off[None, None, :]).expand(-1, ps, ps)
         elem = planes.element_size()
-        b_ms, b_by = bound(covered_pixels(ys, xs, ps, ps, H, W) * C * elem + kps.numel() * 4
-                           + kps.shape[0] * C * ps * ps * elem)
+        b_ms, b_by = bound(covered_pixels(ys, xs, ps, ps, H, W) * C * elem + k_in.numel() * 4
+                           + k_in.shape[0] * C * ps * ps * elem)
         cases.append(dict(kernel="extract_patches", shape=label,
-                          kernel_fn=lambda p=planes, ps=ps: ck.extract_patches(p, kps, ps),
-                          plain_fn=lambda p=planes, ps=ps: ck.extract_patches_plain(p, kps, ps),
+                          kernel_fn=lambda p=planes, ps=ps, k=k_in: ck.extract_patches(p, k, ps),
+                          plain_fn=lambda p=planes, ps=ps, k=k_in: ck.extract_patches_plain(p, k, ps),
                           library_fn=lambda p=planes, ri=r_idx, ci=c_idx: p[:, ri, ci].transpose(0, 1),
                           bound_ms=b_ms, bound_by=b_by))
 
-    # B3/B4: stereo 512x512 and window 5120x512 at 8 and 16 words.
+    # B3/B4: stereo 512x512 and window 5120x512 at 8 and 16 words, and the
+    # reference's K=8192 setting.
     rng = np.random.default_rng(0)
-    for kq, kt, words in ((5120, 512, 8), (512, 512, 8), (5120, 512, 16), (512, 512, 16)):
+    for kq, kt, words in ((5120, 512, 8), (512, 512, 8), (5120, 512, 16), (512, 512, 16), (8192, 8192, 8)):
         q = torch.from_numpy(rng.integers(0, 2**32, (kq, words), dtype=np.uint32).view(np.int32)).to(dev)
         t = torch.from_numpy(rng.integers(0, 2**32, (kt, words), dtype=np.uint32).view(np.int32)).to(dev)
         v = torch.from_numpy(rng.random(kt) >= 0.3).to(dev)
         n_valid = int(v.sum())
-        b_ms, b_by = bound((kq + kt) * words * 4 + kt + kq * 12, ops=2.0 * kq * n_valid * words * 32,
-                           ops_per_s=INT8_TENSOR_OPS_PER_S)
-        kind = "window" if kq > kt else "stereo"
+        b_ms, b_by = bound((kq + kt) * words * 4 + kt + kq * 12,
+                           2.0 * kq * n_valid * words * 32 / INT8_TENSOR_OPS_PER_S)
+        kind = "K=8192" if kq == 8192 else ("window" if kq > kt else "stereo")
         cases.append(dict(kernel="hamming_top2", shape=f"{kind} {kq}x{kt} words={words}",
                           kernel_fn=lambda q=q, t=t, v=v: ck.hamming_top2(q, t, v),
                           plain_fn=lambda q=q, t=t, v=v: ck.hamming_top2_plain(q, t, v), library_fn=None,
@@ -306,9 +348,11 @@ def compare_outputs(what: str, out, ref) -> float:
 
 
 def phase_kernels(ck, cases, windows, dev):
-    """Each case, plus edge cases, against the plain version; returns the
-    max error per kernel."""
+    """Each case, plus edge cases, against the plain version; returns (the
+    max error per kernel, the number of edge cases)."""
     import torch
+
+    from vision_slam_frontend_tpu_torch.ops import edge_cases
 
     errs = {name: 0.0 for name in KERNELS}
     for c in cases + windows:
@@ -330,6 +374,29 @@ def phase_kernels(ck, cases, windows, dev):
         torch.cuda.synchronize()
         what = f"hamming_top2 {kq}x{kt} words={words} invalid={invalid}"
         errs["hamming_top2"] = max(errs["hamming_top2"], compare_outputs(what, out, ck.hamming_top2_plain(q, t, v)))
+        # The same trains 4 bytes off a 16-byte boundary: the kernel's 4-byte copies.
+        flat = torch.zeros(t.numel() + 1, dtype=torch.int32, device=dev)
+        flat[1:] = t.reshape(-1)
+        out = ck.hamming_top2(q, flat[1:].view(t.shape), v)
+        torch.cuda.synchronize()
+        errs["hamming_top2"] = max(errs["hamming_top2"], compare_outputs(
+            f"{what} misaligned trains", out, ck.hamming_top2_plain(q, t, v)))
+    n_edge = 0
+    for label, (q, t, v) in edge_cases.hamming_cases():
+        q, t = (torch.from_numpy(a.view(np.int32)).to(dev) for a in (q, t))
+        v = torch.from_numpy(v).to(dev)
+        out = ck.hamming_top2(q, t, v)
+        torch.cuda.synchronize()
+        errs["hamming_top2"] = max(errs["hamming_top2"], compare_outputs(
+            f"hamming_top2 edge case {label}", out, ck.hamming_top2_plain(q, t, v)))
+        n_edge += 1
+    for label, img in edge_cases.fast_cases():
+        img = torch.from_numpy(img).to(dev)
+        out = ck.fast_scores_nms(img)
+        torch.cuda.synchronize()
+        errs["fast_scores_nms"] = max(errs["fast_scores_nms"], compare_outputs(
+            f"fast_scores_nms edge case {label}", out, ck.fast_scores_nms_plain(img)))
+        n_edge += 1
     # Window gather edge cases: windows that leave the image.
     img = torch.rand((40, 50), device=dev)
     ys = torch.tensor([-3, 0, 35, 39, 100], dtype=torch.int32, device=dev)
@@ -342,7 +409,7 @@ def phase_kernels(ck, cases, windows, dev):
                 errs["patch_windows"] = max(errs["patch_windows"], compare_outputs(
                     f"patch_windows edges rows={rows} shifted={shifted} block={block}", out,
                     ck.patch_windows_plain(img, ys, xs, rows, shifted, block)))
-    return errs
+    return errs, n_edge
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +590,7 @@ def phase_main(ck, frames, window_inputs, dev, tmp):
                  f"keyframes; vs CPU: {agreement}")
     # The window-gather entry point (ops/kernel_variants), at the probe's shapes.
     ck.reset_launch_counts()
-    b5 = kv.run_cases(*window_inputs, runs=TIMING_RUNS)
+    b5 = kv.run_cases(*window_inputs)
     launches = dict(ck.LAUNCHES)
     check_launches("kernel_variants", launches, ("patch_windows",),
                    absent=("fast_scores_nms", "extract_patches", "hamming_top2"))
@@ -603,20 +670,52 @@ def profile_step(config, inputs, dev):
     return launches, device_us / 1e3
 
 
-def phase_timing(cases, frames, dev):
-    """Step medians per configuration; each kernel case's times."""
+def product_ms(ck, dev) -> float:
+    """Device time of the Hamming window shape's distance product alone: the
+    +-1 int8 (5120, 256) @ (256, 512) through torch._int_mm (cuBLAS), checked
+    against the plain distances. A yardstick: the port never calls it."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.ops.brief import unpack_bits
+    from vision_slam_frontend_tpu_torch.utils.cuda_timing import device_ms
+
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.integers(0, 2**32, (5120, 8), dtype=np.uint32).view(np.int32)).to(dev)
+    t = torch.from_numpy(rng.integers(0, 2**32, (512, 8), dtype=np.uint32).view(np.int32)).to(dev)
+    bq, bt = unpack_bits(q), unpack_bits(t)
+    sq = (1 - 2 * bq).to(torch.int8)
+    st = (1 - 2 * bt).to(torch.int8).t().contiguous()
+    dot = torch._int_mm(sq, st)
+    dist = bq.sum(1)[:, None] + bt.sum(1)[None, :] - 2.0 * (bq @ bt.T)
+    check(torch.equal((256 - dot).float() / 2, dist), "the +-1 int8 product disagrees with the plain distances")
+    return device_ms(lambda: torch._int_mm(sq, st))
+
+
+def phase_timing(ck, cases, frames, dev):
+    """Step medians per configuration; each kernel case's times; the
+    profiler's kernel durations at each kernel's main shape; product_ms; and
+    the launch floor: the device time of the smallest kernel (a 1-element
+    fill) timed the same way."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.utils.cuda_timing import call_ms, device_ms, profiled_kernel_ms
+
     inputs = step_inputs(frames, dev)
     steps = {name: step_times(make_config(name), inputs, dev) + profile_step(make_config(name), inputs, dev)
              for name in CONFIGS}
     rows = []
     for c in cases:
-        # Plain, kernel, kernel, plain: the mean of each pair's medians.
-        p1, k1, k2, p2 = (cuda_ms(c["plain_fn"]), cuda_ms(c["kernel_fn"]), cuda_ms(c["kernel_fn"]),
-                          cuda_ms(c["plain_fn"]))
-        lib = cuda_ms(c["library_fn"]) if c["library_fn"] is not None else None
-        rows.append(dict(kernel=c["kernel"], shape=c["shape"], ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                         library_ms=lib, bound_ms=c["bound_ms"], bound_by=c["bound_by"]))
-    return steps, rows
+        # Plain, kernel, kernel, plain: the mean of each pair's device times.
+        p1, k1, k2, p2 = (device_ms(c["plain_fn"]), device_ms(c["kernel_fn"]), device_ms(c["kernel_fn"]),
+                          device_ms(c["plain_fn"]))
+        lib = device_ms(c["library_fn"]) if c["library_fn"] is not None else None
+        row = dict(kernel=c["kernel"], shape=c["shape"], ms=(k1 + k2) / 2, call_ms=call_ms(c["kernel_fn"]),
+                   plain_ms=(p1 + p2) / 2, library_ms=lib, bound_ms=c["bound_ms"], bound_by=c["bound_by"])
+        if PRIMARY_SHAPE[c["kernel"]] == c["shape"]:
+            row["profiled_ms"], row["kernels_per_call"] = profiled_kernel_ms(c["kernel_fn"], KERNELS[c["kernel"]][2])
+        rows.append(row)
+    one = torch.empty(1, device=dev)
+    return steps, rows, product_ms(ck, dev), device_ms(lambda: one.fill_(0.0))
 
 
 def main() -> int:
@@ -630,6 +729,7 @@ def main() -> int:
         return 1
     from vision_slam_frontend_tpu_torch.ops import _build
     from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck
+    from vision_slam_frontend_tpu_torch.utils.cuda_timing import profiled_kernel_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -638,26 +738,27 @@ def main() -> int:
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    say("1 device", f"{kind}, {count} visible; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    smi = nvidia_smi("name,power.limit")
+    sm_mhz = float(nvidia_smi("clocks.max.sm", "csv,noheader,nounits"))
+    say("1 device", f"{kind}, {count} visible; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+        f"max SM clock {sm_mhz:.0f} MHz")
     print(smi, flush=True)
 
     t0 = time.perf_counter()
     _build.library()
     built = (f"nvcc built {_build.library_path().name} in {_build.build_seconds:.1f} s"
              if _build.build_seconds is not None else f"{_build.library_path().name} already built")
-    say("2 build", f"{built}; loaded in {time.perf_counter() - t0:.1f} s")
+    resources = _build.kernel_resources()
+    say("2 build", f"{built}; loaded in {time.perf_counter() - t0:.1f} s; ptxas: " + " | ".join(
+        f"{fn}: {info}" for fn, info in resources.items() if any(k[2] in fn for k in KERNELS.values())))
 
     frames = synthetic_frames(TIMING_KEYFRAMES + 1)
 
-    cases = kernel_cases(ck, frames, dev)
+    cases = kernel_cases(ck, frames, dev, sm_mhz * 1e6)
     window_inputs, windows = window_cases(ck, dev)
-    errs = phase_kernels(ck, cases, windows, dev)
-    say("3 kernels", f"kernel == plain version on the card, exact, at {len(cases) + len(windows)} shapes: "
-        + ", ".join(f"{k} max_abs_err={v}" for k, v in errs.items()))
+    errs, n_edge = phase_kernels(ck, cases, windows, dev)
+    say("3 kernels", f"kernel == plain version on the card, exact, at {len(cases) + len(windows)} shapes and "
+        f"{n_edge} edge cases: " + ", ".join(f"{k} max_abs_err={v}" for k, v in errs.items()))
 
     cpu = torch.device("cpu")
     in_gpu = step_inputs(frames[: NUM_PARITY_KEYFRAMES + 1], dev)
@@ -674,26 +775,39 @@ def main() -> int:
     n_feat = phase_sync_free(frames, dev)
     say("5 main", " | ".join(lines) + f" | steady step under sync-debug 'error' ok, features {n_feat}")
 
-    steps, rows = phase_timing(cases, frames, dev)
+    steps, rows, prod_ms, floor_ms = phase_timing(ck, cases, frames, dev)
     bounds = {w["shape"]: w for w in windows}
+    img, ys, xs = window_inputs
     for r in b5:  # timed by the entry point in phase 5
         w = bounds[r["name"]]
-        rows.append(dict(kernel="patch_windows", shape=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
-                         library_ms=r["library_ms"], bound_ms=w["bound_ms"], bound_by=w["bound_by"]))
+        row = dict(kernel="patch_windows", shape=r["name"], ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
+                   library_ms=r["library_ms"], bound_ms=w["bound_ms"], bound_by=w["bound_by"])
+        if r["name"] == PRIMARY_SHAPE["patch_windows"]:
+            row["profiled_ms"], row["kernels_per_call"] = profiled_kernel_ms(
+                lambda: ck.patch_windows(img, ys, xs, 32, False, 64), KERNELS["patch_windows"][2])
+        rows.append(row)
     say("6 timing", f"[{smi}] keyframe step (640x480, K=512, W=10), medians over steady keyframes: " + "; ".join(
         f"{name} {ms:.3f} ms synced, {enq:.3f} ms enqueue ({n} keyframes), profiled step {nl} launches, "
-        f"{dev_ms:.3f} ms device" for name, (ms, enq, n, nl, dev_ms) in steps.items()) + " | " + "; ".join(
-        f"{r['kernel']} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-        + ("none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms")
+        f"{dev_ms:.3f} ms device" for name, (ms, enq, n, nl, dev_ms) in steps.items()))
+    say("6 timing", f"[{smi}] device ms per launch (CUDA graph of 50, median of 5) | " + "; ".join(
+        f"{r['kernel']} {r['shape']}: kernel {r['ms']:.5f} ms"
+        + (f" (profiler {r['profiled_ms']:.5f})" if "profiled_ms" in r else "")
+        + f", call {r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        + ("none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms")
         + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']})" for r in rows))
+    say("6 timing", f"[{smi}] hamming_top2 yardstick: +-1 int8 product of the window shape (5120x256 @ 256x512) "
+        f"through torch._int_mm, product_ms {prod_ms:.5f} ms; launch floor (a 1-element fill, same method) "
+        f"{floor_ms:.5f} ms")
     say("6 timing", f"whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
-    print(json.dumps({"card": smi, "steps": {k: dict(zip(("ms", "enqueue_ms", "keyframes", "launches", "device_ms"), v))
-                                             for k, v in steps.items()}, "shapes": rows,
+    print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
+                      "steps": {k: dict(zip(("ms", "enqueue_ms", "keyframes", "launches", "device_ms"), v))
+                                for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
+                      "launch_floor_ms": floor_ms,
                       "launches_per_path": per_path}), flush=True)
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

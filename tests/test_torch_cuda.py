@@ -24,10 +24,11 @@ from vision_slam_frontend_tpu_torch.frontend import keyframe as tkf  # noqa: E40
 from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig, generate_sequence  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import akaze, brisk, freak  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from vision_slam_frontend_tpu_torch.ops import edge_cases  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import kernel_variants as kv  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops.descriptors import get_family  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear  # noqa: E402
-from vision_slam_frontend_tpu_torch.utils import np_geom  # noqa: E402
+from vision_slam_frontend_tpu_torch.utils import cuda_timing, np_geom  # noqa: E402
 
 NUM_FRAMES = 5
 CPU = torch.device("cpu")
@@ -83,6 +84,59 @@ def test_kernels_match_plain_versions_on_the_card(cuda, frames):
             assert torch.equal(a, b), (kq, kt, words, invalid)
     torch.cuda.synchronize()
     assert ck.LAUNCHES == {"fast_scores_nms": 1, "extract_patches": 1, "hamming_top2": 4, "patch_windows": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(edge_cases.hamming_cases())))
+def test_hamming_edge_cases_match_plain_on_the_card(cuda, case):
+    """Ties at tile, warp and block boundaries, all distances equal, the
+    only valid train last, Kt of 1, 511 and 513: exact."""
+    label, arrays = edge_cases.hamming_cases()[case]
+    q, t = (torch.from_numpy(a.view(np.int32)).to(cuda) for a in arrays[:2])
+    v = torch.from_numpy(arrays[2]).to(cuda)
+    for a, b in zip(ck.hamming_top2(q, t, v), ck.hamming_top2_plain(q, t, v)):
+        assert torch.equal(a, b), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", [8, 16])
+def test_hamming_misaligned_trains_match_plain_on_the_card(cuda, words):
+    """Trains whose storage starts 4 bytes off a 16-byte boundary (a
+    contiguous view at an offset) take the kernel's 4-byte copies: exact."""
+    rng = np.random.default_rng(words)
+    q = torch.from_numpy(rng.integers(0, 2**32, (200, words), dtype=np.uint32).view(np.int32)).to(cuda)
+    t = torch.from_numpy(rng.integers(0, 2**32, (600, words), dtype=np.uint32).view(np.int32)).to(cuda)
+    v = torch.from_numpy(rng.random(600) >= 0.3).to(cuda)
+    flat = torch.zeros(t.numel() + 1, dtype=torch.int32, device=cuda)
+    flat[1:] = t.reshape(-1)
+    shifted = flat[1:].view(t.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    for a, b in zip(ck.hamming_top2(q, shifted, v), ck.hamming_top2_plain(q, t, v)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_device_ms_leaves_the_host_out(cuda):
+    """device_ms (graph replay behind a spin) times the kernel alone: below
+    the cost of one call, which includes the wrapper's host work."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.integers(0, 2**32, (5120, 8), dtype=np.uint32).view(np.int32)).to(cuda)
+    t = torch.from_numpy(rng.integers(0, 2**32, (512, 8), dtype=np.uint32).view(np.int32)).to(cuda)
+    v = torch.ones(512, dtype=torch.bool, device=cuda)
+    fn = lambda: ck.hamming_top2(q, t, v)  # noqa: E731
+    device = cuda_timing.device_ms(fn)
+    assert 0.0 < device < cuda_timing.call_ms(fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(edge_cases.fast_cases())))
+def test_fast_edge_cases_match_plain_on_the_card(cuda, case):
+    """Ragged sizes, constant images, plateaus, a 0/255 checkerboard and a
+    non-integer float32 level: exact."""
+    label, img = edge_cases.fast_cases()[case]
+    img = torch.from_numpy(img).to(cuda)
+    for a, b in zip(ck.fast_scores_nms(img), ck.fast_scores_nms_plain(img)):
+        assert torch.equal(a, b), label
 
 
 @pytest.mark.cuda

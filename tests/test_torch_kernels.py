@@ -23,6 +23,10 @@ from vision_slam_frontend_tpu.ops import hamming as jhamming  # noqa: E402
 from vision_slam_frontend_tpu.ops import pallas_kernels as pk  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import _build  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
+from vision_slam_frontend_tpu_torch.ops import edge_cases  # noqa: E402
+
+HAMMING_CASES = edge_cases.hamming_cases()
+FAST_CASES = edge_cases.fast_cases()
 
 
 def _image(seed, shape=(96, 128)):
@@ -79,6 +83,17 @@ def test_fast_plain_matches_xla_path_on_interior():
     raw, sup = ck.fast_scores_nms(torch.from_numpy(img))
     np.testing.assert_array_equal(raw.numpy()[3:-3, 3:-3], np.asarray(score_j)[3:-3, 3:-3])
     np.testing.assert_array_equal(sup.numpy()[4:-4, 4:-4], np.asarray(_xla_nms(score_j))[4:-4, 4:-4])
+
+
+@pytest.mark.parametrize("case", range(len(FAST_CASES)), ids=[c[0] for c in FAST_CASES])
+def test_fast_plain_matches_pallas_interpret_on_edge_cases(case):
+    """Ragged sizes smaller and larger than a CUDA tile, constant images,
+    plateaus, a 0/255 checkerboard and a non-integer float32 level."""
+    _, img = FAST_CASES[case]
+    raw_j, sup_j = pk.fast_scores_nms(jnp.asarray(img, jnp.float32), interpret=True)
+    raw, sup = ck.fast_scores_nms(torch.from_numpy(img))
+    np.testing.assert_array_equal(raw.numpy(), np.asarray(raw_j))
+    np.testing.assert_array_equal(sup.numpy(), np.asarray(sup_j))
 
 
 def test_fast_wrapper_checks_input():
@@ -207,6 +222,45 @@ def test_hamming_plain_matches_xor_popcount_interpret(kq, kt, words, invalid):
     real = d1_j <= nbits
     np.testing.assert_array_equal(idx[real], idx_j[real])
     assert real.mean() == (0.0 if invalid == 1.0 else 1.0)
+
+
+@pytest.mark.parametrize("case", range(len(HAMMING_CASES)), ids=[c[0] for c in HAMMING_CASES])
+def test_hamming_plain_matches_references_on_edge_cases(case):
+    """Tie-heavy and ragged cases against the XLA knn2_match, and against
+    hamming_top2_mxu in interpret mode where its shapes allow (Kq % 128,
+    Kt % 512). The MXU kernel adds 1e9 to an invalid train's distance (3e9
+    where none is left), so any value of it >= 1e9 is the port's 1e9."""
+    _, (q, t, v) = HAMMING_CASES[case]
+    idx, d1, d2 = (a.numpy() for a in ck.hamming_top2(_t32(q), _t32(t), torch.from_numpy(v)))
+    dist = jhamming.hamming_distance_matrix(jbrief.unpack_bits(jnp.asarray(q)), jbrief.unpack_bits(jnp.asarray(t)))
+    for ref, out in zip(jhamming.knn2_match(dist, jnp.asarray(v)), (idx, d1, d2)):
+        np.testing.assert_array_equal(out, np.asarray(ref))
+    if q.shape[0] % 128 == 0 and t.shape[0] % 512 == 0:
+        idx_j, d1_j, d2_j = (np.asarray(a) for a in pk.hamming_top2_mxu(jnp.asarray(q), jnp.asarray(t),
+                                                                          jnp.asarray(v), interpret=True))
+        np.testing.assert_array_equal(idx, idx_j)
+        np.testing.assert_array_equal(d1, np.where(d1_j >= 1e9, 1e9, d1_j))
+        np.testing.assert_array_equal(d2, np.where(d2_j >= 1e9, 1e9, d2_j))
+
+
+def test_hamming_edge_cases_pin_the_tie_rule():
+    """The cases hold what they claim: the lowest valid copy of a tied pair
+    wins, d1 == d2 on ties, the last train wins when it alone is valid."""
+    by_label = dict(HAMMING_CASES)
+    for words in (8, 16):
+        for invalid_first in (False, True):
+            q, t, v = by_label[f"ties at boundaries words={words} lower copy invalid={invalid_first}"]
+            idx, d1, d2 = (a.numpy() for a in ck.hamming_top2(_t32(q), _t32(t), torch.from_numpy(v)))
+            pairs = edge_cases.TIE_PAIRS
+            want = np.array([pairs[r % len(pairs)][1 if invalid_first else 0] for r in range(len(q))])
+            np.testing.assert_array_equal(idx, want)
+            assert (d1 <= 8).all() and (d2 == d1).all() != invalid_first
+        q, t, v = by_label[f"only the last train valid words={words}"]
+        idx, d1, d2 = (a.numpy() for a in ck.hamming_top2(_t32(q), _t32(t), torch.from_numpy(v)))
+        assert (idx == len(t) - 1).all() and (d1 < 1e9).all() and (d2 == 1e9).all()
+        q, t, v = by_label[f"all distances zero words={words}"]
+        idx, d1, d2 = (a.numpy() for a in ck.hamming_top2(_t32(q), _t32(t), torch.from_numpy(v)))
+        assert (idx == 0).all() and (d1 == 0).all() and (d2 == 0).all()
 
 
 def test_hamming_ties_take_lowest_index():

@@ -24,7 +24,7 @@ SOURCES = ("fast_nms.cu", "extract_patches.cu", "hamming_top2.cu", "patch_window
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -41,6 +41,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the build this process ran
+ptxas_log: dict[str, str] = {}  # source -> what `-Xptxas -v` printed for it, from that build
 
 
 def _nvcc() -> str:
@@ -69,10 +70,26 @@ def _run(cmd: list[str]) -> subprocess.Popen:
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def _check(proc: subprocess.Popen, cmd: list[str]) -> None:
+def _check(proc: subprocess.Popen, cmd: list[str]) -> str:
     output = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n{output}")
+    return output
+
+
+def kernel_resources() -> dict[str, str]:
+    """Per kernel function, what ptxas reported for it in this process's
+    build (registers, shared memory, spills), one line each."""
+    out = {}
+    for log in ptxas_log.values():
+        name = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif name is not None and ("Used" in line or "spill" in line):
+                fact = line.split("info    :", 1)[-1].strip()
+                out[name] = f"{out[name]}; {fact}" if name in out else fact
+    return out
 
 
 def _build(out: Path) -> None:
@@ -88,8 +105,8 @@ def _build(out: Path) -> None:
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
         jobs.append((_run(cmd), cmd))
     try:
-        for proc, cmd in jobs:
-            _check(proc, cmd)
+        for src, (proc, cmd) in zip(SOURCES, jobs):
+            ptxas_log[src] = _check(proc, cmd)
     finally:
         for proc, _ in jobs:
             if proc.poll() is None:

@@ -180,8 +180,10 @@ def hamming_top2(
     left. words is 8 (256-bit, ORB) or 16 (512-bit, BRISK, FREAK, AKAZE).
 
     One kernel serves both TPU kernels of this contract: the ±1 bf16 product
-    of `hamming_top2_mxu` and the XOR + popcount of `hamming_top2`, whose
-    arithmetic it runs (the TPU sentinels 3e9 and 1 << 20 become 1e9)."""
+    of `hamming_top2_mxu` and the XOR + popcount of `hamming_top2`. It
+    computes the distances on the tensor cores as binary AND + popcount
+    products of the packed words (the TPU sentinels 3e9 and 1 << 20 become
+    1e9)."""
     _require(desc_q.dim() == 2 and desc_t.dim() == 2 and desc_q.shape[1] == desc_t.shape[1],
              f"hamming_top2: shapes {tuple(desc_q.shape)} vs {tuple(desc_t.shape)}")
     _require(desc_q.dtype == torch.int32 and desc_t.dtype == torch.int32,

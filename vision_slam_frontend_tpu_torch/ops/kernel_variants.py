@@ -7,8 +7,8 @@ patch_windows): 32-column windows at a per-keypoint row start, reading
 columns 0..31 (E1, E2, E5) or xs[k]..xs[k]+31 (E3 by a one-hot product,
 E4 by a lane roll: two TPU devices for one shifted read, the same case of
 the CUDA kernel here). Each case runs on the card, is held against the plain
-version (exact), and is timed beside it and beside one PyTorch
-advanced-indexing gather:
+version (exact), and is timed on the device (utils/cuda_timing.device_ms)
+beside it and beside one PyTorch advanced-indexing gather:
 
     python -m vision_slam_frontend_tpu_torch.ops.kernel_variants
 
@@ -19,13 +19,13 @@ with no times.
 from __future__ import annotations
 
 import argparse
-import statistics
 import sys
 
 import numpy as np
 import torch
 
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck
+from vision_slam_frontend_tpu_torch.utils.cuda_timing import call_ms, device_ms
 
 # (name, rows, shifted, keypoints per block), in the probe's order.
 CASES = (
@@ -67,27 +67,12 @@ def gather_indices(ys: torch.Tensor, xs: torch.Tensor, rows: int, shifted: bool)
     return r, c
 
 
-def cuda_ms(fn, runs: int) -> float:
-    """Median device time of one call of `fn` by CUDA events, after warm-up."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def run_cases(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, runs: int = 30) -> list[dict]:
+def run_cases(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor) -> list[dict]:
     """Each case: the kernel (on a CUDA device) against the plain version,
-    exactly, then, on the card, the times of the kernel, the plain version
-    and one index gather (plain, kernel, kernel, plain: each the mean of two
-    medians). Raises on the first disagreement."""
+    exactly, then, on the card, the device times of the kernel, the plain
+    version and one index gather (utils/cuda_timing.device_ms; plain, kernel,
+    kernel, plain: each the mean of two), and the kernel's cost per call
+    (call_ms). Raises on the first disagreement."""
     on_card = img.device.type == "cuda"
     padded = torch.nn.functional.pad(img, (0, ck.WINDOW_COLS, 0, 8))
     results = []
@@ -100,16 +85,16 @@ def run_cases(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor, runs: int =
             bad = int((out != ref).sum()) if out.shape == ref.shape else out.numel()
             raise AssertionError(f"patch_windows case {name!r}: {bad} of {ref.numel()} values differ "
                                  "from the plain version")
-        row = {"name": name, "max_abs_err": 0.0, "ms": None, "plain_ms": None, "library_ms": None}
+        row = {"name": name, "max_abs_err": 0.0, "ms": None, "call_ms": None, "plain_ms": None, "library_ms": None}
         if on_card:
             r_idx, c_idx = gather_indices(ys, xs, rows, shifted)
             if not torch.equal(index_gather(padded, r_idx, c_idx), ref):
                 raise AssertionError(f"case {name!r}: the index gather disagrees with the plain version")
             kernel = lambda: ck.patch_windows(img, ys, xs, rows, shifted, block)
             plain = lambda: ck.patch_windows_plain(img, ys, xs, rows, shifted, block)
-            p1, k1, k2, p2 = cuda_ms(plain, runs), cuda_ms(kernel, runs), cuda_ms(kernel, runs), cuda_ms(plain, runs)
-            row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                       library_ms=cuda_ms(lambda: index_gather(padded, r_idx, c_idx), runs))
+            p1, k1, k2, p2 = device_ms(plain), device_ms(kernel), device_ms(kernel), device_ms(plain)
+            row.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, call_ms=call_ms(kernel),
+                       library_ms=device_ms(lambda: index_gather(padded, r_idx, c_idx)))
         results.append(row)
     return results
 
@@ -127,7 +112,8 @@ def main(argv=None) -> int:
     print(f"patch_windows at H={H} W={W} K={K} on {where}", flush=True)
     for r in run_cases(img, ys, xs):
         times = ("" if r["ms"] is None else
-                 f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, index gather {r['library_ms']:.4f} ms")
+                 f" device ms: kernel {r['ms']:.4f}, plain {r['plain_ms']:.4f}, index gather "
+                 f"{r['library_ms']:.4f}; kernel call {r['call_ms']:.4f} ms")
         print(f"{r['name']:46s} parity=OK (max_abs_err {r['max_abs_err']}){times}", flush=True)
     return 0
 
