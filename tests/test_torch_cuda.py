@@ -24,7 +24,7 @@ from vision_slam_frontend_tpu_torch.frontend import keyframe as tkf  # noqa: E40
 from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig, generate_sequence  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import akaze, brisk, freak  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from vision_slam_frontend_tpu_torch.ops import edge_cases  # noqa: E402
+import torch_edge_cases as edge_cases  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import kernel_variants as kv  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops.descriptors import get_family  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear  # noqa: E402
@@ -100,9 +100,10 @@ def test_hamming_edge_cases_match_plain_on_the_card(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("words", [8, 16])
-def test_hamming_misaligned_trains_match_plain_on_the_card(cuda, words):
+def test_hamming_refuses_misaligned_trains_on_the_card(cuda, words):
     """Trains whose storage starts 4 bytes off a 16-byte boundary (a
-    contiguous view at an offset) take the kernel's 4-byte copies: exact."""
+    contiguous view at an element offset) are refused; a row slice, as
+    callers make, is aligned and exact."""
     rng = np.random.default_rng(words)
     q = torch.from_numpy(rng.integers(0, 2**32, (200, words), dtype=np.uint32).view(np.int32)).to(cuda)
     t = torch.from_numpy(rng.integers(0, 2**32, (600, words), dtype=np.uint32).view(np.int32)).to(cuda)
@@ -111,8 +112,22 @@ def test_hamming_misaligned_trains_match_plain_on_the_card(cuda, words):
     flat[1:] = t.reshape(-1)
     shifted = flat[1:].view(t.shape)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
-    for a, b in zip(ck.hamming_top2(q, shifted, v), ck.hamming_top2_plain(q, t, v)):
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck.hamming_top2(q, shifted, v)
+    rows = t[1:]
+    for a, b in zip(ck.hamming_top2(q, rows, v[1:]), ck.hamming_top2_plain(q, rows, v[1:])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_launch_counts_leave_out_graph_capture(cuda):
+    """device_ms counts its warm-up calls as launches, not the calls it
+    captures into a CUDA graph (they launch nothing)."""
+    q = torch.zeros((64, 8), dtype=torch.int32, device=cuda)
+    v = torch.ones(64, dtype=torch.bool, device=cuda)
+    ck.reset_launch_counts()
+    cuda_timing.device_ms(lambda: ck.hamming_top2(q, q, v))
+    assert ck.LAUNCHES["hamming_top2"] == cuda_timing.WARMUP_CALLS
 
 
 @pytest.mark.cuda

@@ -55,7 +55,7 @@ def _port_modules():
 
 
 def test_port_and_chip_smoke_import_without_jax():
-    modules = _port_modules()
+    modules = _port_modules() + ["torch_edge_cases"]  # chip_smoke's edge-case inputs
     assert {"vision_slam_frontend_tpu_torch.ops.akaze", "vision_slam_frontend_tpu_torch.ops.kernel_variants",
             "vision_slam_frontend_tpu_torch.cli.slam_frontend"} <= set(modules)
     proc = subprocess.run(

@@ -23,7 +23,7 @@ from vision_slam_frontend_tpu.ops import hamming as jhamming  # noqa: E402
 from vision_slam_frontend_tpu.ops import pallas_kernels as pk  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import _build  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
-from vision_slam_frontend_tpu_torch.ops import edge_cases  # noqa: E402
+import torch_edge_cases as edge_cases  # noqa: E402
 
 HAMMING_CASES = edge_cases.hamming_cases()
 FAST_CASES = edge_cases.fast_cases()

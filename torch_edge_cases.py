@@ -1,5 +1,6 @@
-"""Edge-case inputs of the FAST and Hamming kernels, made with numpy from
-fixed seeds.
+"""Edge-case inputs of the PyTorch port's FAST and Hamming kernels, made with
+numpy from fixed seeds. Checks import it from the repo's root; the port
+itself never does.
 
 One definition serves three checks: the plain versions against the JAX
 package on the CPU (tests/test_torch_kernels.py), and each kernel against its

@@ -23,8 +23,8 @@
 //     lists, on an NVIDIA H100 80GB HBM3 at 700 W.)
 //   - Staging: a block copies its trains (up to 512 at a time) and their
 //     validity into shared memory with cp.async, every thread's copies in
-//     flight together (16 bytes each where the trains' address allows), while
-//     its queries load; then one pass stores each train's popcount, or a
+//     flight together (16 bytes each: the trains must start on a 16-byte
+//     boundary), while its queries load; then one pass stores each train's popcount, or a
 //     value that keeps an invalid train out of the top-2.
 //   - Work split: a block holds 16 queries (the mma's M) and 4 warps; warp w
 //     takes every 4th 8-train tile of the block's trains. Where the queries
@@ -40,8 +40,9 @@
 //     compares (d, index) lexicographically, so the lowest index wins in
 //     whatever order partials meet.
 // What bounds it on the H100: 2 * Kq * Kt * nbits operations (0.47 us at
-// 5120 x 512 x 256 at the int8 rate, 1,979 TOP/s; the data sheet gives no
-// binary rate) against bytes that fit in L2. At the frontend's sizes the
+// 5120 x 512 x 256 taken at the int8 rate, 1,979 TOP/s: the data sheet gives
+// no binary rate, which may be higher, so this floor is an estimate) against
+// bytes that fit in L2 (0.07 us at 3.35 TB/s). At the frontend's sizes the
 // fixed cost of a launch, one round trip to memory and the block and cluster
 // barriers (about 5 us, the stereo 512 x 512 time on an NVIDIA H100 80GB
 // HBM3 at 700 W), not the rate.
@@ -106,29 +107,20 @@ __device__ __forceinline__ void mma_b1(int (&c)[4], uint32_t a0, uint32_t a1, ui
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src));
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
                "l"(src));
 }
 
 // Stage trains n0 .. n0 + count - 1 (packed words and validity) in shared
-// memory: every thread's copies in flight at once, 16 bytes each where the
-// trains' base address allows it. The caller waits (cp.async.wait_all) and
+// memory: every thread's 16-byte copies in flight at once (the wrapper
+// requires 16-byte-aligned trains). The caller waits (cp.async.wait_all) and
 // syncs the block before reading.
 template <int WORDS>
 __device__ __forceinline__ void stage_chunk(const uint32_t* __restrict__ t, const uint8_t* __restrict__ valid,
                                             int n0, int count, uint32_t* stage, uint8_t* stage_valid) {
   const uint32_t* src = t + static_cast<size_t>(n0) * WORDS;
-  if ((reinterpret_cast<uintptr_t>(t) & 15) == 0) {
-    for (int i = threadIdx.x; i < count * WORDS / 4; i += blockDim.x) cp_async16(stage + 4 * i, src + 4 * i);
-  } else {
-    for (int i = threadIdx.x; i < count * WORDS; i += blockDim.x) cp_async4(stage + i, src + i);
-  }
+  for (int i = threadIdx.x; i < count * WORDS / 4; i += blockDim.x) cp_async16(stage + 4 * i, src + 4 * i);
   asm volatile("cp.async.commit_group;\n" ::);
   for (int i = threadIdx.x; i < kChunk; i += blockDim.x) stage_valid[i] = i < count && valid[n0 + i];
 }

@@ -6,8 +6,9 @@ it launches its kernel from `csrc/` on the current stream, raising if the
 launch fails; on a CPU tensor it runs the plain PyTorch version beside it.
 There is no other fallback.
 
-`LAUNCHES` counts kernel launches per wrapper (plain-version calls do not
-count), so a run can show that its path went through the kernels.
+`LAUNCHES` counts kernel launches per wrapper (plain-version calls and calls
+captured into a CUDA graph do not count), so a run can show that its path
+went through the kernels.
 
 Kernels (source, TPU kernel replaced):
   fast_scores_nms  csrc/fast_nms.cu         pallas_kernels.fast_scores_nms
@@ -58,7 +59,10 @@ def _launch(name: str, device: torch.device, *args) -> None:
             f"CUDA kernel {name} failed to launch: error {err} "
             f"({lib.vsf_error_string(err).decode()})"
         )
-    LAUNCHES[name] += 1
+    # A call made while the stream is captured into a CUDA graph records the
+    # kernel and launches nothing; the graph's replays are not this wrapper's.
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 def _dispatch_device(t: torch.Tensor, name: str) -> bool:
@@ -173,7 +177,9 @@ def hamming_top2(
     desc_q: torch.Tensor, desc_t: torch.Tensor, valid_t: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """kNN(2) of packed descriptors: (Kq, words) int32 queries against
-    (Kt, words) int32 trains, (Kt,) bool train validity.
+    (Kt, words) int32 trains (on the card, stored from a 16-byte boundary,
+    as every allocation and every row slice of one is), (Kt,) bool train
+    validity.
 
     Returns (best_idx (Kq,) int32, d1 (Kq,) f32, d2 (Kq,) f32): the lowest
     index wins ties, invalid trains are ignored, 1e9 where no valid train is
@@ -197,6 +203,7 @@ def hamming_top2(
     if not _dispatch_device(desc_q, "hamming_top2"):
         return hamming_top2_plain(desc_q, desc_t, valid_t)
     _require(desc_t.is_contiguous() and valid_t.is_contiguous(), "hamming_top2: inputs must be contiguous")
+    _require(desc_t.data_ptr() % 16 == 0, "hamming_top2: train storage must be 16-byte aligned")
     Kq, Kt = desc_q.shape[0], desc_t.shape[0]
     dev = desc_q.device
     idx = torch.empty(Kq, dtype=torch.int32, device=dev)

@@ -23,6 +23,7 @@ import statistics
 
 import torch
 
+WARMUP_CALLS = 3  # stream calls before any timing
 DEVICE_LAUNCHES = 50  # launches per graph replay
 DEVICE_REPEATS = 5  # replays; the median is reported
 CALL_RUNS = 30  # single calls; the median is reported
@@ -33,7 +34,7 @@ MAX_SLEEP_CYCLES = 1 << 31
 def call_ms(fn) -> float:
     """Median time of one call of `fn` between two CUDA events, after warm-up
     (host work before the launch included)."""
-    for _ in range(3):
+    for _ in range(WARMUP_CALLS):
         fn()
     times = []
     for _ in range(CALL_RUNS):
@@ -53,11 +54,13 @@ def device_ms(fn) -> float:
     CUDA graph that the host enqueued before the window opened, over
     DEVICE_LAUNCHES.
 
-    `fn` must be capturable: no host sync, its inputs already on the card."""
+    `fn` must be capturable: no host sync, its inputs already on the card.
+    Only its WARMUP_CALLS warm-up calls launch from the stream (and count in
+    ops/cuda_kernels.LAUNCHES); the captured calls launch nothing."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture, as graphs require
-        for _ in range(3):
+        for _ in range(WARMUP_CALLS):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -94,7 +97,7 @@ def profiled_kernel_ms(fn, symbol: str) -> tuple[float, int]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(WARMUP_CALLS):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
