@@ -16,7 +16,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               8192x8192; the window gather's five cases; then the edge cases
               of torch_edge_cases.py (Hamming ties at tile and block
               boundaries, ragged and tiny train sets; FAST at ragged sizes,
-              constant images, plateaus, a checkerboard). Exact equality
+              constant images, plateaus, a checkerboard; patches at odd
+              widths, planes at an element offset, K from 1 to 513, ps from
+              1 to 33, keypoints at the edges and on .5; windows leaving the
+              image, xs at every residue mod 4, ragged K). Exact equality
   4. parity   keyframe_step on CUDA vs on the CPU from the same state: the
               default ORB slice for 4 synthetic keyframes, then BRISK, FREAK,
               AKAZE and the 3-level ORB pyramid for 2 each (640x480, K=512,
@@ -391,18 +394,22 @@ def phase_kernels(ck, cases, windows, dev):
         errs["fast_scores_nms"] = max(errs["fast_scores_nms"], compare_outputs(
             f"fast_scores_nms edge case {label}", out, ck.fast_scores_nms_plain(img)))
         n_edge += 1
-    # Window gather edge cases: windows that leave the image.
-    img = torch.rand((40, 50), device=dev)
-    ys = torch.tensor([-3, 0, 35, 39, 100], dtype=torch.int32, device=dev)
-    xs = torch.tensor([0, 45, -2, 20, 3], dtype=torch.int32, device=dev)
-    for rows in ck.WINDOW_ROWS:
-        for shifted in (False, True):
-            for block in ck.WINDOW_BLOCKS:
-                out = ck.patch_windows(img, ys, xs, rows, shifted, block)
-                torch.cuda.synchronize()
-                errs["patch_windows"] = max(errs["patch_windows"], compare_outputs(
-                    f"patch_windows edges rows={rows} shifted={shifted} block={block}", out,
-                    ck.patch_windows_plain(img, ys, xs, rows, shifted, block)))
+    for label, planes, kps, ps, offset in edge_cases.patch_cases():
+        planes = edge_cases.at_offset(planes, offset, dev)
+        kps = torch.from_numpy(kps).to(dev)
+        out = ck.extract_patches(planes, kps, ps)
+        torch.cuda.synchronize()
+        errs["extract_patches"] = max(errs["extract_patches"], compare_outputs(
+            f"extract_patches edge case {label}", out, ck.extract_patches_plain(planes, kps, ps)))
+        n_edge += 1
+    for label, img, ys, xs, rows, shifted, block, offset in edge_cases.window_cases():
+        img = edge_cases.at_offset(img, offset, dev)
+        ys, xs = torch.from_numpy(ys).to(dev), torch.from_numpy(xs).to(dev)
+        out = ck.patch_windows(img, ys, xs, rows, shifted, block)
+        torch.cuda.synchronize()
+        errs["patch_windows"] = max(errs["patch_windows"], compare_outputs(
+            f"patch_windows edge case {label}", out, ck.patch_windows_plain(img, ys, xs, rows, shifted, block)))
+        n_edge += 1
     return errs, n_edge
 
 

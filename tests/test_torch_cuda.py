@@ -155,6 +155,36 @@ def test_fast_edge_cases_match_plain_on_the_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(edge_cases.patch_cases())))
+def test_patch_edge_cases_match_plain_on_the_card(cuda, case):
+    """Odd and ragged widths, planes at a 1-element offset, K from 1 to 513,
+    C from 1 to 7, ps from 1 to 33 and equal to H or W, keypoints at the
+    edges, outside and on .5: exact, one launch each."""
+    label, planes, kps, ps, offset = edge_cases.patch_cases()[case]
+    p = edge_cases.at_offset(planes, offset, cuda)
+    k = torch.from_numpy(kps).to(cuda)
+    ck.reset_launch_counts()
+    out = ck.extract_patches(p, k, ps)
+    assert ck.LAUNCHES["extract_patches"] == 1
+    assert torch.equal(out, ck.extract_patches_plain(p, k, ps)), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(edge_cases.window_cases())))
+def test_window_edge_cases_match_plain_on_the_card(cuda, case):
+    """Windows leaving the image and past the probe's padding, xs at every
+    residue mod 4, widths not a multiple of 4, K not a multiple of `block`,
+    an image at a 1-element offset: exact, one launch each."""
+    label, img, ys, xs, rows, shifted, block, offset = edge_cases.window_cases()[case]
+    im = edge_cases.at_offset(img, offset, cuda)
+    y, x = torch.from_numpy(ys).to(cuda), torch.from_numpy(xs).to(cuda)
+    ck.reset_launch_counts()
+    out = ck.patch_windows(im, y, x, rows, shifted, block)
+    assert ck.LAUNCHES["patch_windows"] == 1
+    assert torch.equal(out, ck.patch_windows_plain(im, y, x, rows, shifted, block)), label
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("overrides", [{}, {"descriptor_family": "brisk"}, {"descriptor_family": "freak"},
                                        {"descriptor_family": "akaze"}, {"num_levels": 3}],
                          ids=["orb", "brisk", "freak", "akaze", "orb_pyramid"])

@@ -1,8 +1,9 @@
 """The window-gather kernel's plain version (ops/cuda_kernels.
 patch_windows_plain) against the TPU probe's Pallas kernel
 (probe_kernel_variants.run_variant) run in TPU interpret mode on the CPU,
-for all five of the probe's bodies; exact. The bodies below are the probe's
-own (probe_kernel_variants.main), which it defines locally.
+for all five of the probe's bodies and on the edge cases of
+torch_edge_cases.window_cases; exact. The bodies below are the probe's own
+(probe_kernel_variants.main), which it defines locally.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 import probe_kernel_variants as pkv  # noqa: E402
+import torch_edge_cases as edge_cases  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import kernel_variants as kv  # noqa: E402
 
@@ -64,6 +66,56 @@ def test_patch_windows_plain_matches_probe_kernel(case):
     out = ck.patch_windows(img, ys, xs, rows, shifted, block)
     assert out.shape == (K, rows, LW)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def _shifted_body(rows):
+    """The probe's roll body (E4) at `rows` rows: the shifted read at 31 rows,
+    which the probe itself runs only at 32."""
+    def body(img_ref, ky, kx, Wp):
+        return pltpu.roll(img_ref[pl.ds(ky, rows), :], -kx, 1)[:, :LW]
+    return body
+
+
+def _numpy_windows(img, ys, xs, rows, shifted):
+    """Windows cut out of the image zero-padded by more than any window reaches."""
+    H, W = img.shape
+    pad = int(np.abs(np.concatenate([ys, xs])).max()) + rows + LW
+    padded = np.pad(img, pad)
+    c0 = xs if shifted else np.zeros_like(xs)
+    return np.stack([padded[pad + y : pad + y + rows, pad + c : pad + c + LW] for y, c in zip(ys, c0)])
+
+
+WINDOW_CASES = edge_cases.window_cases()
+
+
+@pytest.mark.parametrize("case", range(len(WINDOW_CASES)), ids=[c[0] for c in WINDOW_CASES])
+def test_patch_windows_plain_matches_references_on_edge_cases(case):
+    """Windows leaving the image on every side and past the probe's padding,
+    xs at every residue mod 4, widths not a multiple of 4, K not a multiple of
+    `block`, an image view at an element offset: against numpy, and against
+    the probe's kernel in interpret mode on the windows its padded image holds
+    (0 <= ys <= H + 8 - rows and, shifted, 0 <= xs <= W; the TPU reads past it
+    are undefined), repeated to a multiple of `block`.
+    Exact."""
+    _, img, ys, xs, rows, shifted, block, offset = WINDOW_CASES[case]
+    H, W = img.shape
+    out = ck.patch_windows(edge_cases.at_offset(img, offset), torch.from_numpy(ys), torch.from_numpy(xs), rows,
+                           shifted, block).numpy()
+    np.testing.assert_array_equal(out, _numpy_windows(img, ys, xs, rows, shifted))
+    held = (ys >= 0) & (ys <= H + 8 - rows) & (((xs >= 0) & (xs <= W)) if shifted else True)
+    assert held.any()
+    n = int(held.sum())
+    k = -(-n // block) * block
+    pys, pxs = (np.resize(a[held], k) for a in (ys, xs))
+    if not shifted:
+        bodies = (body_e1 if rows == 32 else body_e2,)
+    else:
+        bodies = (body_e3, body_e4) if rows == 32 else (_shifted_body(rows),)
+    for body in bodies:
+        with pltpu.force_tpu_interpret_mode():
+            ref = pkv.run_variant(body.__name__, body, rows, k, H, W, block)(jnp.asarray(img), jnp.asarray(pys),
+                                                                             jnp.asarray(pxs))
+        np.testing.assert_array_equal(out[held], np.asarray(ref)[:n])
 
 
 def test_patch_windows_zero_outside_the_image():

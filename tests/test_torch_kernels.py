@@ -27,6 +27,7 @@ import torch_edge_cases as edge_cases  # noqa: E402
 
 HAMMING_CASES = edge_cases.hamming_cases()
 FAST_CASES = edge_cases.fast_cases()
+PATCH_CASES = edge_cases.patch_cases()
 
 
 def _image(seed, shape=(96, 128)):
@@ -153,6 +154,38 @@ def test_patches_other_patch_size():
         sx = min(max(int(np.rint(x)) - 13, 0), 50 - 27)
         sy = min(max(int(np.rint(y)) - 13, 0), 40 - 27)
         np.testing.assert_array_equal(out[k, 0], planes[0, sy : sy + 27, sx : sx + 27].ravel())
+
+
+def _numpy_patches(planes, kps, ps):
+    """Patches cut out by numpy slicing: corner clip(rint(kp) - ps // 2, 0, dim - ps)."""
+    C, H, W = planes.shape
+    out = np.empty((len(kps), C, ps * ps), planes.dtype)
+    for k, (x, y) in enumerate(kps):
+        sx = min(max(int(np.rint(x)) - ps // 2, 0), W - ps)
+        sy = min(max(int(np.rint(y)) - ps // 2, 0), H - ps)
+        out[k] = planes[:, sy : sy + ps, sx : sx + ps].reshape(C, -1)
+    return out
+
+
+@pytest.mark.parametrize("case", range(len(PATCH_CASES)), ids=[c[0] for c in PATCH_CASES])
+def test_patches_plain_matches_references_on_edge_cases(case):
+    """Odd and ragged widths, a view at an element offset, K from 1 to 513,
+    C from 1 to 7, ps from 1 to 33 and equal to H or W, keypoints clamped at
+    every edge, outside and on .5: against numpy slicing, the Pallas kernel
+    in interpret mode where its 32-lane rows hold the patch (ps <= 32, with a
+    block that divides K), and the XLA gather where the patch is ORB's 31x31.
+    Exact."""
+    _, planes, kps, ps, offset = PATCH_CASES[case]
+    out = ck.extract_patches(edge_cases.at_offset(planes, offset), torch.from_numpy(kps), ps).numpy()
+    np.testing.assert_array_equal(out, _numpy_patches(planes, kps, ps))
+    if ps <= 32:
+        block = max(b for b in range(1, 17) if len(kps) % b == 0)
+        ref = pk.extract_patches_vmem(jnp.asarray(planes, jnp.float32), jnp.asarray(kps), ps=ps, block=block,
+                                      interpret=True)
+        np.testing.assert_array_equal(out.astype(np.float32), np.asarray(ref))
+    if ps == jbrief.PATCH_SIZE:
+        ref = jbrief.extract_patches(jnp.asarray(planes.transpose(1, 2, 0)), jnp.asarray(kps))  # (K, 961, C)
+        np.testing.assert_array_equal(out, np.asarray(ref).transpose(0, 2, 1))
 
 
 def test_patches_wrapper_checks_input():

@@ -1,11 +1,12 @@
-"""Edge-case inputs of the PyTorch port's FAST and Hamming kernels, made with
-numpy from fixed seeds. Checks import it from the repo's root; the port
-itself never does.
+"""Edge-case inputs of the PyTorch port's kernels (FAST, patches, Hamming and
+the window gather), made with numpy from fixed seeds. Checks import it from
+the repo's root; the port itself never does.
 
 One definition serves three checks: the plain versions against the JAX
-package on the CPU (tests/test_torch_kernels.py), and each kernel against its
-plain version on the card (tests/test_torch_cuda.py and chip_smoke.py phase
-3). Each case is (label, arrays); the arrays are numpy, so every check hands
+package on the CPU (tests/test_torch_kernels.py and
+tests/test_torch_kernel_variants.py), and each kernel against its plain
+version on the card (tests/test_torch_cuda.py and chip_smoke.py phase 3).
+Each case starts with its label; the arrays are numpy, so every check hands
 the same bits to the version it runs.
 """
 
@@ -104,4 +105,109 @@ def fast_cases() -> list[tuple[str, np.ndarray]]:
     yy, xx = np.mgrid[:37, :61]
     cases.append(("checkerboard 0/255 37x61 u8", (((yy + xx) % 2) * 255).astype(np.uint8)))
     cases.append(("non-integer 50x77 f32", rng.uniform(0, 255, (50, 77)).astype(np.float32)))
+    return cases
+
+
+def at_offset(array: np.ndarray, offset: int, device=None):
+    """`array` as a contiguous torch tensor that starts `offset` elements into
+    its storage (a view), on `device`: a base that is not 16-byte aligned."""
+    import torch
+
+    src = torch.from_numpy(np.ascontiguousarray(array)).reshape(-1)
+    flat = torch.zeros(src.numel() + offset, dtype=src.dtype, device=device)
+    flat[offset:] = src.to(device)
+    return flat[offset:].view(array.shape)
+
+
+def _patch_keypoints(rng, K: int, H: int, W: int) -> np.ndarray:
+    """K keypoints: clamped at each edge, far outside, negative and exactly on
+    .5 (round half to even both ways) first, then uniform over the image and
+    a 5-pixel margin."""
+    special = np.array(
+        [[20.5, 13.5], [0, H / 2], [W - 1, H / 2], [W / 2, 0], [W / 2, H - 1], [-1000, -1000],
+         [W + 1000, H + 1000], [-7, 3], [3.5, H - 2.5], [W - 15.5, H - 16.5], [0.5, 1.5], [-0.5, 2.5],
+         [W + 3, -4], [W / 2 + 0.49, H / 2 + 0.51]],
+        np.float32,
+    )
+    kps = rng.uniform(-5, [W + 5, H + 5], (K, 2)).astype(np.float32)
+    n = min(K, len(special))
+    kps[:n] = special[:n]
+    return kps
+
+
+def patch_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int]]:
+    """(label, planes (C, H, W) f16 or f32, keypoints (K, 2) f32, ps, offset)
+    for the patch gather: widths odd or not a multiple of 4 (457, 71, 33),
+    K from 1 to 513, C from 1 to 7, ps from 1 to 33 and equal to H or W, the
+    first 14 keypoints of each case at the edges, outside and on .5. With
+    `offset` 1 the planes are handed over as a view 1 element into its
+    storage (`at_offset`)."""
+    rng = np.random.default_rng(300)
+    shapes = (  # (C, H, W, dtype, K, ps, offset)
+        (1, 343, 457, np.float16, 513, 31, 0),
+        (5, 343, 457, np.float32, 65, 27, 0),
+        (1, 343, 457, np.float16, 63, 31, 1),
+        (7, 40, 71, np.float32, 9, 27, 0),
+        (2, 40, 71, np.float16, 63, 32, 0),
+        (3, 40, 71, np.float32, 65, 31, 1),
+        (5, 40, 71, np.float16, 1, 2, 0),
+        (3, 36, 33, np.float32, 7, 33, 0),
+        (1, 36, 33, np.float16, 9, 1, 1),
+        (2, 20, 71, np.float32, 9, 20, 0),
+        (7, 33, 40, np.float16, 3, 33, 0),
+        (1, 31, 33, np.float32, 7, 31, 0),
+        (3, 40, 71, np.float16, 9, 27, 1),
+        (7, 343, 457, np.float32, 3, 32, 1),
+    )
+    cases = []
+    for C, H, W, dtype, K, ps, offset in shapes:
+        planes = rng.uniform(0, 255, (C, H, W)).astype(dtype)
+        label = (f"{np.dtype(dtype).name} C={C} {W}x{H} K={K} ps={ps}"
+                 + (" (=H)" if ps == H else "") + (" (=W)" if ps == W else "")
+                 + (f" view at +{offset}" if offset else ""))
+        cases.append((label, planes, _patch_keypoints(rng, K, H, W), ps, offset))
+    return cases
+
+
+def window_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray, int, bool, int, int]]:
+    """(label, image (H, W) f32, ys (K,) int32, xs (K,) int32, rows, shifted,
+    block, offset) for the window gather: windows that leave the image on
+    every side, past the probe's padding too; xs at every residue mod 4;
+    widths not a multiple of 4; K not a multiple of `block`; and an image
+    handed over 1 element into its storage (`at_offset`)."""
+    rng = np.random.default_rng(400)
+    cases = []
+    img = rng.random((40, 50), dtype=np.float32)
+    ys = np.array([-3, 0, 35, 39, 100], np.int32)
+    xs = np.array([0, 45, -2, 20, 3], np.int32)
+    for rows in (31, 32):
+        for shifted in (False, True):
+            for block in (8, 64):
+                cases.append((f"leaving the image rows={rows} shifted={shifted} block={block}", img, ys, xs, rows,
+                              shifted, block, 0))
+    img = rng.random((48, 64), dtype=np.float32)
+    xs = np.arange(-4, 36, dtype=np.int32)  # every residue mod 4, from left of the image to past its right
+    ys = rng.integers(-40, 60, xs.shape).astype(np.int32)
+    for rows, block in ((32, 8), (31, 64)):
+        cases.append((f"xs at every residue mod 4 rows={rows} block={block}", img, ys, xs, rows, True, block, 0))
+    for W in (61, 62, 63):
+        img = rng.random((37, W), dtype=np.float32)
+        ys = rng.integers(-5, 37, 24).astype(np.int32)
+        xs = rng.integers(-3, W + 1, 24).astype(np.int32)
+        for shifted in (False, True):
+            cases.append((f"W={W} shifted={shifted}", img, ys, xs, 32, shifted, 8, 0))
+    img = rng.random((30, 40), dtype=np.float32)
+    ys = np.array([22, 30, 37, 38, 39, 100, 0, 5], np.int32)  # past the 8 padded rows at the bottom
+    xs = np.array([8, 40, 41, 72, 73, 500, 39, 9], np.int32)  # past the 32 padded columns on the right
+    for shifted in (False, True):
+        cases.append((f"past the padding shifted={shifted}", img, ys, xs, 31, shifted, 8, 0))
+    img = rng.random((64, 96), dtype=np.float32)
+    for K, block in ((67, 64), (13, 8)):
+        ys = rng.integers(0, 40, K).astype(np.int32)
+        xs = rng.integers(0, 70, K).astype(np.int32)
+        cases.append((f"K={K} block={block}", img, ys, xs, 32, False, block, 0))
+    ys = rng.integers(-4, 60, 40).astype(np.int32)
+    xs = rng.integers(-4, 90, 40).astype(np.int32)
+    for shifted in (False, True):
+        cases.append((f"image view at +1 shifted={shifted}", img, ys, xs, 32, shifted, 64, 1))
     return cases

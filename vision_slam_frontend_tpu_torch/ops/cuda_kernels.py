@@ -250,8 +250,8 @@ def patch_windows(
     Window k is P[ys[k] : ys[k] + rows, c0 : c0 + 32] of the image padded
     with zeros (the probe pads (0, 8) rows and (0, 32) columns; reads beyond
     that are zeros too), where c0 = xs[k] if `shifted` else 0. `block` is the
-    number of keypoints one CUDA block copies (the probe's 64 or 8); it does
-    not change the result."""
+    probe's keypoints per program (64 or 8); it changes neither the result
+    nor the kernel's grid, which is sized to the card."""
     _require(image.dim() == 2 and image.dtype == torch.float32,
              f"patch_windows: expected a (H, W) float32 image, got {tuple(image.shape)} {image.dtype}")
     _require(ys.dim() == 1 and ys.dtype == torch.int32 and xs.shape == ys.shape and xs.dtype == torch.int32,
@@ -279,7 +279,7 @@ def patch_windows_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of `patch_windows`: one index gather, zeros
     where the window leaves the image."""
-    del block  # the kernel's keypoints per CUDA block
+    del block  # the probe's keypoints per program: no effect on the result
     H, W = image.shape
     dev = image.device
     y = ys.long()[:, None, None] + torch.arange(rows, device=dev)[None, :, None]
