@@ -42,7 +42,9 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               function where there is one (timed the same way), its cost per
               call (CUDA events around one call), and its bound; at each
               kernel's main shape, torch.profiler's kernel durations as a
-              cross-check; the Hamming window shape's +-1 int8 product
+              cross-check ("not measured" where the profiler recorded no
+              device trace: the CUDA-event times are the figures of
+              record, and a missing trace fails nothing); the Hamming window shape's +-1 int8 product
               alone through torch._int_mm (product_ms, a yardstick); and the
               launch floor, a 1-element fill timed the same way
 Then a JSON line of every kernel shape's numbers, the kernels JSON line and,
@@ -650,7 +652,8 @@ def step_times(config, inputs, dev):
 
 def profile_step(config, inputs, dev):
     """Kernel launches and device time (ms) of one steady step, from
-    torch.profiler: (launches, device ms)."""
+    torch.profiler: (launches, device ms), each None where the profiler
+    recorded no such event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -667,8 +670,9 @@ def profile_step(config, inputs, dev):
         torch.cuda.synchronize()
     events = prof.key_averages()
     launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
-    device_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
-    return launches, device_us / 1e3
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3 if device else None
+    return launches or None, device_ms
 
 
 def product_ms(ck, dev) -> float:
@@ -715,10 +719,20 @@ def phase_timing(ck, cases, frames, dev):
         if "bound_bytes_ms" in c:
             row["bound_bytes_ms"] = c["bound_bytes_ms"]
         if PRIMARY_SHAPE[c["kernel"]] == c["shape"]:
-            row["profiled_ms"], row["kernels_per_call"] = profiled_kernel_ms(c["kernel_fn"], KERNELS[c["kernel"]][2])
+            row["profiled_ms"], row["kernels_per_call"], row["profiled_device_events"] = profiled_kernel_ms(
+                c["kernel_fn"], KERNELS[c["kernel"]][2])
         rows.append(row)
     one = torch.empty(1, device=dev)
     return steps, rows, product_ms(ck, dev), device_ms(lambda: one.fill_(0.0))
+
+
+def profiler_note(row) -> str:
+    """The profiler's cross-check of a timing row, for phase 6's line."""
+    if "profiled_ms" not in row:
+        return ""
+    if row["profiled_ms"] is None:
+        return f" (profiler not measured: {row['profiled_device_events']} device events recorded, none of this kernel)"
+    return f" (profiler {row['profiled_ms']:.5f})"
 
 
 def main() -> int:
@@ -786,15 +800,17 @@ def main() -> int:
         row = dict(kernel="patch_windows", shape=r["name"], ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
                    library_ms=r["library_ms"], bound_ms=w["bound_ms"], bound_by=w["bound_by"])
         if r["name"] == PRIMARY_SHAPE["patch_windows"]:
-            row["profiled_ms"], row["kernels_per_call"] = profiled_kernel_ms(
+            row["profiled_ms"], row["kernels_per_call"], row["profiled_device_events"] = profiled_kernel_ms(
                 lambda: ck.patch_windows(img, ys, xs, 32, False, 64), KERNELS["patch_windows"][2])
         rows.append(row)
     say("6 timing", f"[{smi}] keyframe step (640x480, K=512, W=10), medians over steady keyframes: " + "; ".join(
-        f"{name} {ms:.3f} ms synced, {enq:.3f} ms enqueue ({n} keyframes), profiled step {nl} launches, "
-        f"{dev_ms:.3f} ms device" for name, (ms, enq, n, nl, dev_ms) in steps.items()))
+        f"{name} {ms:.3f} ms synced, {enq:.3f} ms enqueue ({n} keyframes), profiled step "
+        + ("launches not measured" if nl is None else f"{nl} launches") + ", "
+        + ("device time not measured" if dev_ms is None else f"{dev_ms:.3f} ms device")
+        for name, (ms, enq, n, nl, dev_ms) in steps.items()))
     say("6 timing", f"[{smi}] device ms per launch (CUDA graph of 50, median of 5) | " + "; ".join(
         f"{r['kernel']} {r['shape']}: kernel {r['ms']:.5f} ms"
-        + (f" (profiler {r['profiled_ms']:.5f})" if "profiled_ms" in r else "")
+        + profiler_note(r)
         + f", call {r['call_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
         + ("none" if r["library_ms"] is None else f"{r['library_ms']:.5f} ms")
         + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}"

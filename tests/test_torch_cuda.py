@@ -144,6 +144,21 @@ def test_device_ms_leaves_the_host_out(cuda):
 
 
 @pytest.mark.cuda
+def test_profiled_kernel_ms_reports_a_missing_kernel_without_failing(cuda):
+    """The profiler's cross-check gives None, not an error, for a kernel it
+    did not record, and one kernel per call for the one it did (where the
+    process has a device trace at all)."""
+    q = torch.zeros((64, 8), dtype=torch.int32, device=cuda)
+    v = torch.ones(64, dtype=torch.bool, device=cuda)
+    fn = lambda: ck.hamming_top2(q, q, v)  # noqa: E731
+    assert cuda_timing.profiled_kernel_ms(fn, "no_such_kernel")[:2] == (None, 0)
+    ms, per_call, n_device = cuda_timing.profiled_kernel_ms(fn, "hamming_top2_kernel")
+    assert (ms is None) == (n_device == 0)
+    if ms is not None:
+        assert ms > 0.0 and per_call == 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", range(len(edge_cases.fast_cases())))
 def test_fast_edge_cases_match_plain_on_the_card(cuda, case):
     """Ragged sizes, constant images, plateaus, a 0/255 checkerboard and a
