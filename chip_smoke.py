@@ -47,8 +47,25 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               record, and a missing trace fails nothing); the Hamming window shape's +-1 int8 product
               alone through torch._int_mm (product_ms, a yardstick); and the
               launch floor, a 1-element fill timed the same way
-Then a JSON line of every kernel shape's numbers, the kernels JSON line and,
-last, the result line.
+  7. ba       the bundle-adjustment backend (plain torch, no kernel of its
+              own; TF32 off, printed): (a) synthetic_ba_problem(P=64,
+              L=4096) on the CPU and on the card under dense and PCG, final
+              cost, poses and landmarks within the stated tolerances and
+              equal accepted steps, LM accept/reject flips reported (dense
+              must have none); (b) the benchmark shape (P=500, L=100k,
+              N=500k, clean) with tests/test_ba_scale_accuracy.py's settings,
+              dense then pcg_chunked (the single-program PCG) at 32 CG
+              iterations, held to that test's ATE checks, with LM it/s, the
+              median iteration split into linearize / solve / cost, enqueue
+              against synced time, launches per iteration (torch.profiler),
+              peak memory, and one linearize + solve per solver under
+              sync-debug "error"; (c) the first two dense iterations twice,
+              bit-equal; (d) one iteration at L=500k, N=2.5M under dense and
+              PCG: time and peak memory; (e) the slam_backend CLI on phase
+              5's synthetic:20 npz on the card and on the CPU: the same keys,
+              shapes and dtypes, poses and landmarks within (a)'s tolerances
+Then a JSON line of every kernel shape's numbers and the BA numbers, the
+kernels JSON line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -69,6 +86,32 @@ MAIN_INPUT = "synthetic:20"
 FAMILY_INPUT = "synthetic:8"
 FAMILY_FRAMES = 8
 TIMING_KEYFRAMES = 20
+
+# Phase 7 (BA): the small CPU/CUDA comparison, the benchmark shape with
+# tests/test_ba_scale_accuracy.py's settings and checks, and the largest shape.
+BA_SMALL = dict(P=64, L=4096)
+BA_SMALL_ITERATIONS = 25
+BA_SCALE = (500, 100_000, 5)
+BA_BIG = (500, 500_000, 5)
+BA_ITERATIONS = 25
+BA_CG_ITERATIONS = 32
+BA_ATE_MAX = {"dense": 0.040, "pcg": 0.045}
+BA_ATE_GAP = 0.008
+BA_MIN_ACCEPTED = 5
+# CPU against CUDA, the same problem and solver settings: final cost
+# (relative), poses (m) and landmarks (m). On the CPU a 1-ulp change of the
+# small problem's landmarks moves its dense result by 2e-3 m (poses) and
+# 0.06 m (landmarks). Its PCG runs (monocular, float32 CG at small damping)
+# take other accept/reject decisions after such a change and follow other LM
+# paths: after 25 iterations their final costs agree within 3e-4 (poses
+# within 0.05 m, landmarks along weak rays within 14 m). Where the card's and
+# the CPU's decisions differ, the flips are reported and the final cost is
+# held to BA_FLIP_COST_RTOL; dense must have no flips.
+BA_COST_RTOL = 1e-3
+BA_POSE_ATOL = 1e-2
+BA_LM_ATOL = 0.1
+BA_FLIP_COST_RTOL = 5e-3
+BA_REPS = 5
 
 # The H100's published peaks (NVIDIA data sheet, SXM, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -735,6 +778,314 @@ def profiler_note(row) -> str:
     return f" (profiler {row['profiled_ms']:.5f})"
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the bundle-adjustment backend
+# ---------------------------------------------------------------------------
+
+
+def accept_pattern(history) -> list[bool]:
+    """Per LM iteration, whether its step was accepted (the cost fell)."""
+    return [b < a for a, b in zip(history[:-1], history[1:])]
+
+
+def compare_ba(what: str, gpu, cpu, gt_t) -> str:
+    """Hold a CUDA run (problem, info) to the CPU run of the same problem."""
+    from vision_slam_frontend_tpu_torch.backend.metrics import ate_rmse
+
+    (pg, ig), (pc, ic) = gpu, cpu
+    pg = pg.to("cpu")
+    rel = abs(ig["cost"] - ic["cost"]) / max(abs(ic["cost"]), 1e-12)
+    pose = max(max_abs_err(pg.poses_t, pc.poses_t), max_abs_err(pg.poses_q, pc.poses_q))
+    lm = max_abs_err(pg.landmarks, pc.landmarks)
+    flips = [i for i, (a, b) in enumerate(zip(accept_pattern(ig["history"]), accept_pattern(ic["history"]))) if a != b]
+    line = (f"{what}: cost {ig['cost']:.6g} vs {ic['cost']:.6g} (rel {rel:.2e}), accepted {ig['accepted']} vs "
+            f"{ic['accepted']}, ATE {ate_rmse(pg.poses_t.numpy(), gt_t):.4f} vs {ate_rmse(pc.poses_t.numpy(), gt_t):.4f} "
+            f"m, poses max diff {pose:.2e}, landmarks {lm:.2e}")
+    if flips:
+        check(rel <= BA_FLIP_COST_RTOL, f"{line}; LM decisions flip at iterations {flips}, cost beyond {BA_FLIP_COST_RTOL}")
+        return line + f"; LM accept/reject decisions FLIP at iterations {flips} (different LM paths: cost held only)"
+    check(rel <= BA_COST_RTOL and pose <= BA_POSE_ATOL and lm <= BA_LM_ATOL and ig["accepted"] == ic["accepted"],
+          f"{line}: beyond cost {BA_COST_RTOL}, poses {BA_POSE_ATOL}, landmarks {BA_LM_ATOL}")
+    return line + "; no decision flips"
+
+
+def phase_ba_small(dev) -> list[str]:
+    """(a): synthetic_ba_problem on the CPU and on the card, dense and PCG."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+
+    lines = []
+    runs = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        cam, problem, gt_t, _ = synthetic_ba_problem(**BA_SMALL, device=device)
+        for name in ("dense", "pcg"):
+            solver = BASolverConfig(max_iterations=BA_SMALL_ITERATIONS, schur_solver=name,
+                                    cg_iterations=BA_CG_ITERATIONS)
+            runs[where, name] = optimize(problem, cam=cam, solver=solver)
+    for name in ("dense", "pcg"):
+        line = compare_ba(name, runs["card", name], runs["cpu", name], gt_t)
+        check(name != "dense" or "FLIP" not in line, f"dense: {line}")
+        lines.append(line)
+    return lines
+
+
+def ba_scalars():
+    """The default solver's Huber delta and odometry weights, rounded to
+    float32 as optimize rounds them."""
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, _round_f32
+
+    solver = BASolverConfig()
+    return tuple(_round_f32(x) for x in (solver.huber_delta, solver.odom_t_weight, solver.odom_r_weight))
+
+
+def ba_build(name, problem, pm, plan, lin, lam=1e-3):
+    """The solve's one-time products: dense, the assembled S (the Schur
+    assembly); PCG, the preconditioner and the CG operator's state."""
+    from vision_slam_frontend_tpu_torch.backend import ba
+
+    if name == "dense":
+        return ba._dense_assemble(pm, *lin, problem, lam, True, plan)
+    return ba._pm_build_from_pm(pm, *lin, problem, lam, True)
+
+
+def ba_finish(name, problem, lin, built):
+    """The rest of the step from ba_build's products: dense, the Cholesky
+    solve and the back-substitution; PCG, the CG iterations and the
+    back-substitution. Returns (d_pose, d_lm)."""
+    from vision_slam_frontend_tpu_torch.backend import ba
+
+    if name == "dense":
+        S4, b, free, V_inv, g_lm = built
+        d_pose, _ = ba._dense_solve_core(S4, b, free)
+        lm_mask = problem.lm_obs_mask.to(g_lm.dtype)[..., None]
+        return d_pose, ba._backsub(lin[1], lin[2], problem.lm_obs, lm_mask, V_inv, g_lm, d_pose)
+    state, b, g_lm = built
+    d_pose, _ = ba._run_pcg(b, lambda x: ba._pm_sapply(state, x), lambda x: ba._pm_mapply(state, x),
+                            BA_CG_ITERATIONS)
+    return d_pose, ba._pm_backsub(state, g_lm, d_pose)
+
+
+def ba_solve(name, problem, pm, plan, lin):
+    return ba_finish(name, problem, lin, ba_build(name, problem, pm, plan, lin))
+
+
+def ba_iteration_times(name, cam, problem, reps: int):
+    """One LM iteration's phases (linearize; the solve's one-time products:
+    the Schur assembly for dense; the Cholesky or CG solve with the
+    back-substitution; the candidate cost), each synced, `reps` times: the
+    medians (ms), the median host enqueue and synced time of a whole
+    iteration (ms), the launches and device ms of one profiled iteration
+    (None where the profiler recorded none), and the sync check: one
+    linearize + solve under sync-debug "error"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_slam_frontend_tpu_torch.backend import ba
+
+    hd, wt, wr = ba_scalars()
+    pm = ba._build_pm_inputs(problem)
+    plan = ba._dense_coupling_plan(problem) if name == "dense" else None
+
+    def lin():
+        return ba._linearize_pm(cam, problem, pm, hd, wt, wr, True)
+
+    def iteration():
+        step = ba_solve(name, problem, pm, plan, lin())
+        return ba.compute_cost(cam, ba._apply_step(problem, step[0], step[1]), hd, wt, wr, True)
+
+    float(iteration())  # warm-up
+    phases, whole, enqueue = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        terms = lin()
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        built = ba_build(name, problem, pm, plan, terms)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        step = ba_finish(name, problem, terms, built)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        float(ba.compute_cost(cam, ba._apply_step(problem, step[0], step[1]), hd, wt, wr, True))
+        t.append(time.perf_counter())
+        phases.append([(b - a) * 1e3 for a, b in zip(t[:-1], t[1:])])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cost = iteration()
+        t1 = time.perf_counter()
+        float(cost)
+        whole.append((time.perf_counter() - t0) * 1e3)
+        enqueue.append((t1 - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        float(iteration())
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3 if device else None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ba_solve(name, problem, pm, plan, lin())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    med = [statistics.median(p[i] for p in phases) for i in range(4)]
+    return dict(linearize_ms=med[0], build_ms=med[1], solve_ms=med[2], cost_ms=med[3],
+                iteration_ms=statistics.median(whole), enqueue_ms=statistics.median(enqueue),
+                launches=launches or None, device_ms=device_ms)
+
+
+def ba_timing_text(t) -> str:
+    return (f"iteration {t['iteration_ms']:.2f} ms synced, {t['enqueue_ms']:.2f} ms enqueue; linearize "
+            f"{t['linearize_ms']:.2f}, build (dense: Schur assembly; PCG: one-time products) {t['build_ms']:.2f}, "
+            f"solve (Cholesky or {BA_CG_ITERATIONS} CG iterations, back-substitution) {t['solve_ms']:.2f}, "
+            f"cost {t['cost_ms']:.2f} ms; "
+            + ("launches not measured" if t["launches"] is None else f"{t['launches']} launches") + ", "
+            + ("device time not measured" if t["device_ms"] is None else f"{t['device_ms']:.2f} ms device")
+            + " per iteration; no sync inside linearize + solve")
+
+
+def phase_ba_scale(dev):
+    """(b) and (c): the benchmark shape, both solvers, the accuracy checks,
+    the timings; then the first two dense iterations twice, bit-equal."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
+    from vision_slam_frontend_tpu_torch.backend.metrics import ate_rmse
+    from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
+    from vision_slam_frontend_tpu_torch.io.synthetic import make_problem
+
+    P, L, obs = BA_SCALE
+    problem, gt_t, _ = make_problem(P, L, obs, return_gt=True, clean=True, device=dev)
+    cam = CameraParams(fx=500.0, fy=500.0, cx=320.0, cy=240.0, R_cr=np.eye(3), t_cr=np.zeros(3)).to(dev)
+    n_obs = int(problem.obs_mask.sum())
+    init_ate = ate_rmse(problem.poses_t.cpu().numpy(), gt_t)
+    check(init_ate > 0.05, f"the benchmark problem's initial ATE {init_ate:.4f} is not perturbed")
+    out = {"shape": dict(P=P, L=L, N=n_obs, slots=problem.num_observations, Mp=int(problem.pose_obs.shape[1]),
+                         Ml=int(problem.lm_obs.shape[1])), "init_ate": init_ate}
+    lines = [f"P={P} L={L}, {n_obs} valid observations of {problem.num_observations} (clean), "
+             f"initial ATE {init_ate:.4f} m"]
+    for name, schur in (("dense", "dense"), ("pcg", "pcg_chunked")):
+        solver = BASolverConfig(max_iterations=BA_ITERATIONS, schur_solver=schur, cg_iterations=BA_CG_ITERATIONS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        opt, info = optimize(problem, cam=cam, solver=solver)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ate = ate_rmse(opt.poses_t.cpu().numpy(), gt_t)
+        check(np.isfinite(info["cost"]), f"{name}: non-finite cost")
+        check(ate < BA_ATE_MAX[name], f"{name}: ATE {ate:.4f} >= {BA_ATE_MAX[name]}")
+        check(ate < init_ate / 2.5, f"{name}: ATE {ate:.4f} not below the initial {init_ate:.4f} / 2.5")
+        check(info["accepted"] >= BA_MIN_ACCEPTED, f"{name}: {info['accepted']} accepted steps")
+        times = ba_iteration_times(name, cam, problem, BA_REPS)
+        out[name] = dict(ate=ate, cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
+                         seconds=elapsed, lm_it_per_s=info["iterations"] / elapsed, peak_gib=peak, **times)
+        lines.append(f"{name} ({schur}, cg {BA_CG_ITERATIONS}): ATE {ate:.4f} m (limit {BA_ATE_MAX[name]}), cost "
+                     f"{info['cost']:.1f}, {info['accepted']} of {info['iterations']} steps accepted in {elapsed:.2f} s = "
+                     f"{info['iterations'] / elapsed:.2f} LM it/s, peak {peak:.2f} GiB; " + ba_timing_text(times))
+    gap = abs(out["dense"]["ate"] - out["pcg"]["ate"])
+    check(gap < BA_ATE_GAP, f"dense and PCG ATEs differ by {gap:.4f}")
+    lines.append(f"ATE gap {gap:.4f} m (limit {BA_ATE_GAP})")
+
+    two = BASolverConfig(max_iterations=2, schur_solver="dense", cg_iterations=BA_CG_ITERATIONS)
+    (a, _), (b, _) = optimize(problem, cam=cam, solver=two), optimize(problem, cam=cam, solver=two)
+    for field in ("poses_t", "poses_q", "landmarks"):
+        check_equal(f"dense rerun {field}", getattr(a, field), getattr(b, field))
+    lines.append("(c) two dense iterations twice: poses and landmarks bit-equal")
+    return out, lines
+
+
+def phase_ba_big(dev):
+    """(d): one iteration at L=500k, N=2.5M, dense and PCG."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
+    from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
+    from vision_slam_frontend_tpu_torch.io.synthetic import make_problem
+
+    P, L, obs = BA_BIG
+    problem = make_problem(P, L, obs, device=dev)
+    cam = CameraParams(fx=500.0, fy=500.0, cx=320.0, cy=240.0, R_cr=np.eye(3), t_cr=np.zeros(3)).to(dev)
+    n_obs = int(problem.obs_mask.sum())
+    out = {"shape": dict(P=P, L=L, N=n_obs, slots=problem.num_observations, Mp=int(problem.pose_obs.shape[1]),
+                         Ml=int(problem.lm_obs.shape[1]))}
+    lines = [f"P={P} L={L}, {n_obs} valid observations of {problem.num_observations}"]
+    for name, schur in (("dense", "dense"), ("pcg", "pcg_chunked")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, info = optimize(problem, cam=cam, solver=BASolverConfig(max_iterations=1, schur_solver=schur,
+                                                                   cg_iterations=BA_CG_ITERATIONS))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(np.isfinite(info["cost"]), f"L={L} {name}: non-finite cost")
+        times = ba_iteration_times(name, cam, problem, 1)
+        out[name] = dict(seconds=elapsed, peak_gib=peak, cost=info["cost"], accepted=info["accepted"], **times)
+        lines.append(f"{name}: one LM iteration in optimize {elapsed:.2f} s (set-up included), peak {peak:.2f} GiB, "
+                     f"accepted {info['accepted']}; " + ba_timing_text(times))
+    return out, lines
+
+
+def phase_ba_cli(npz: str, dev, tmp) -> str:
+    """(e): the backend CLI on the frontend's synthetic:20 problem, card and CPU."""
+    import contextlib
+    import io
+
+    from vision_slam_frontend_tpu_torch.cli.slam_backend import main as backend_main
+
+    outs, summary = {}, []
+    for where, device in (("card", str(dev)), ("cpu", "cpu")):
+        outs[where] = os.path.join(tmp, f"ba_{where}.npz")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = backend_main(["--input", npz, "--output", outs[where], "--device", device])
+        check(rc == 0, f"slam_backend --device {device}: exit code {rc}")
+        if where == "card":
+            summary = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("BA problem", "BA converged"))]
+    a, b = np.load(outs["card"]), np.load(outs["cpu"])
+    check(sorted(a.files) == sorted(b.files), "slam_backend npz keys differ between the card and the CPU")
+    for k in b.files:
+        check(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, f"slam_backend npz {k}: shape/dtype differ")
+    pose = float(max(np.abs(a["nodes_loc"] - b["nodes_loc"]).max(), np.abs(a["nodes_quat"] - b["nodes_quat"]).max()))
+    lm = float(np.abs(a["ba_landmarks"] - b["ba_landmarks"]).max())
+    cost_a, cost_b = float(a["ba_cost_history"][-1]), float(b["ba_cost_history"][-1])
+    rel = abs(cost_a - cost_b) / max(abs(cost_b), 1e-12)
+    check(bool(np.isfinite(a["ba_landmarks"]).all()), "slam_backend: non-finite landmarks")
+    check(pose <= BA_POSE_ATOL and lm <= BA_LM_ATOL and rel <= BA_COST_RTOL,
+          f"slam_backend card vs CPU: poses {pose:.2e}, landmarks {lm:.2e}, cost rel {rel:.2e}")
+    return (f"slam_backend on {MAIN_INPUT}'s problem: " + "; ".join(summary) + f" | card vs CPU: {len(a.files)} keys "
+            f"with equal shapes and dtypes, poses max diff {pose:.2e}, landmarks {lm:.2e}, final cost rel {rel:.2e}")
+
+
+def phase_ba(ck, dev, npz: str, tmp, card: str):
+    """Phase 7, one line per part as it ends; returns (the BA numbers, the
+    launch counts of the frontend kernels while it ran: none)."""
+    import torch
+
+    ck.reset_launch_counts()
+    say("7 ba", f"[{card}] torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    say("7 ba", f"(a) CPU vs CUDA, synthetic_ba_problem(P={BA_SMALL['P']}, L={BA_SMALL['L']}), "
+        f"{BA_SMALL_ITERATIONS} LM iterations: " + " | ".join(phase_ba_small(dev)))
+    scale, scale_lines = phase_ba_scale(dev)
+    say("7 ba", f"(b), (c) [{card}] " + " | ".join(scale_lines))
+    torch.cuda.empty_cache()
+    big, big_lines = phase_ba_big(dev)
+    say("7 ba", f"(d) [{card}] " + " | ".join(big_lines))
+    torch.cuda.empty_cache()
+    say("7 ba", "(e) " + phase_ba_cli(npz, dev, tmp))
+    launches = dict(ck.LAUNCHES)
+    check_launches("BA", launches, (), absent=tuple(KERNELS))
+    return {"scale": scale, "big": big}, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -787,8 +1138,8 @@ def main() -> int:
         parity.append(f"{name} {n_kf} keyframes: {n_fields} int/bool fields equal, float max abs diff {float_err:.3g}")
     say("4 parity", "CUDA vs CPU at 640x480, K=512, W=10: " + "; ".join(parity))
 
-    with tempfile.TemporaryDirectory() as tmp:
-        per_path, lines, b5 = phase_main(ck, frames, window_inputs, dev, tmp)
+    tmp_dir = tempfile.TemporaryDirectory()  # phase 5's problems feed phase 7
+    per_path, lines, b5 = phase_main(ck, frames, window_inputs, dev, tmp_dir.name)
     n_feat = phase_sync_free(frames, dev)
     say("5 main", " | ".join(lines) + f" | steady step under sync-debug 'error' ok, features {n_feat}")
 
@@ -819,14 +1170,18 @@ def main() -> int:
     say("6 timing", f"[{smi}] hamming_top2 yardstick: +-1 int8 product of the window shape (5120x256 @ 256x512) "
         f"through torch._int_mm, product_ms {prod_ms:.5f} ms; launch floor (a 1-element fill, same method) "
         f"{floor_ms:.5f} ms")
-    say("6 timing", f"whole run {time.perf_counter() - t_start:.1f} s")
+    say("6 timing", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    ba_numbers, per_path["ba"] = phase_ba(ck, dev, os.path.join(tmp_dir.name, "orb_gpu.npz"), tmp_dir.name, smi)
+    tmp_dir.cleanup()
+    say("7 ba", f"whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
     print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
                       "steps": {k: dict(zip(("ms", "enqueue_ms", "keyframes", "launches", "device_ms"), v))
                                 for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
                       "launch_floor_ms": floor_ms,
-                      "launches_per_path": per_path}), flush=True)
+                      "launches_per_path": per_path, "ba": ba_numbers}), flush=True)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])

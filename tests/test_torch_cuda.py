@@ -1,14 +1,17 @@
 """The port on a CUDA GPU: each kernel against its plain PyTorch version at
-the main paths' shapes, and the keyframe step and Frontend on the card
-against the CPU, for every descriptor family and the ORB pyramid.
+the main paths' shapes, the keyframe step and Frontend on the card against
+the CPU, for every descriptor family and the ORB pyramid, and the BA
+backend (a failed Cholesky, bit-equal reruns, the card against the CPU, the
+CUDA default refused without a card).
 
-Every test here needs the card and skips where there is none. The file
-imports no JAX (the GPU machine has none), so it runs there on its own:
+The tests marked `cuda` need the card and skip where there is none; the BA
+tests' CPU cases and the refusal test run anywhere. The file imports no JAX
+(the GPU machine has none), so it runs there on its own:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Kernel outputs are integers (FAST scores, Hamming distances, indices) or
-copies (patches), so every comparison is exact.
+copies (patches), so every kernel comparison is exact.
 """
 
 import dataclasses
@@ -251,3 +254,105 @@ def test_frontend_on_the_card_launches_each_kernel_twice_per_keyframe(cuda, fram
     assert fe.get_slam_problem().summary() == ref.get_slam_problem().summary()
     for a, b in zip(fe.node_track_ids, ref.node_track_ids):
         np.testing.assert_array_equal(a, b)
+
+
+# --- the BA backend -----------------------------------------------------------
+# The solver runs where its problem's tensors live; the tests below that take
+# a `where` parameter run on the CPU here too (the cuda case skips).
+
+WHERE = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
+
+
+def _device(where, request):
+    return request.getfixturevalue("cuda") if where == "cuda" else CPU
+
+
+@pytest.mark.parametrize("where", WHERE)
+def test_failed_cholesky_escalates_lambda(where, request, monkeypatch, tmp_path):
+    """An indefinite S fails the Cholesky; the step is then NaN, the
+    candidate cost non-finite, and LM raises lambda by lambda_up**3, as the
+    JAX package does (its Cholesky returns NaN on failure)."""
+    from vision_slam_frontend_tpu_torch.backend import ba
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+
+    dev = _device(where, request)
+    S4 = -torch.eye(6, device=dev).repeat(2, 2, 1, 1)
+    d_pose, rr = ba._dense_solve_core(S4, torch.ones(2, 6, device=dev), torch.tensor([0.0, 1.0], device=dev))
+    assert bool(torch.isnan(d_pose).all()) and bool(torch.isnan(rr))
+
+    cam, problem, _, _ = synthetic_ba_problem(P=16, L=512, stereo=True, device=dev)
+    solver = ba.BASolverConfig(max_iterations=1, schur_solver="dense")
+    ckpt = str(tmp_path / "ok.npz")
+    _, info = ba.optimize(problem, cam=cam, solver=solver, checkpoint_path=ckpt, checkpoint_every=1)
+    assert info["accepted"] == 1 and ba.load_solver_checkpoint(ckpt)[1]["lambda"] == pytest.approx(1e-3 * 0.4)
+
+    solve, calls = ba._dense_solve_core, []
+
+    def indefinite(S4, b, free):
+        calls.append(1)
+        return solve(-S4, b, free)
+
+    monkeypatch.setattr(ba, "_dense_solve_core", indefinite)
+    ckpt = str(tmp_path / "failed.npz")
+    _, info = ba.optimize(problem, cam=cam, solver=solver, checkpoint_path=ckpt, checkpoint_every=1)
+    assert calls == [1] and info["accepted"] == 0 and info["history"][1] == info["history"][0]
+    assert ba.load_solver_checkpoint(ckpt)[1]["lambda"] == pytest.approx(1e-3 * 4.0**3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_ba_reruns_are_bit_equal_on_the_card(cuda, solver):
+    """Every reduction is deterministic on the card: two runs of one problem
+    give the same poses and landmarks bit for bit. (The CPU's LAPACK and
+    BLAS promise no such thing.)"""
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+
+    cam, problem, _, _ = synthetic_ba_problem(P=64, L=4096, device=cuda)
+    cfg = BASolverConfig(max_iterations=2, schur_solver=solver, cg_iterations=32)
+    (a, ia), (b, ib) = optimize(problem, cam=cam, solver=cfg), optimize(problem, cam=cam, solver=cfg)
+    assert ia["history"] == ib["history"]
+    for field in ("poses_t", "poses_q", "landmarks"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+def test_ba_on_the_card_matches_the_cpu(cuda, solver):
+    """A stereo problem, its first 3 LM iterations on each device (each
+    lowers the cost by more than 1e-4; later ones by less than 1e-5, where
+    rounding decides acceptance): the same accepted steps, final cost within
+    1e-5 relative, poses within 1e-4 and landmarks within 1e-3 (m)."""
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+
+    runs = []
+    for dev in (cuda, CPU):
+        cam, problem, _, _ = synthetic_ba_problem(P=32, L=1024, stereo=True, device=dev)
+        runs.append(optimize(problem, cam=cam, solver=BASolverConfig(max_iterations=3, schur_solver=solver)))
+    (g, ig), (c, ic) = runs
+    assert ig["accepted"] == ic["accepted"] == 3 and ig["cost"] == pytest.approx(ic["cost"], rel=1e-5)
+    assert float((g.poses_t.cpu() - c.poses_t).abs().max()) < 1e-4
+    assert float((g.landmarks.cpu() - c.landmarks).abs().max()) < 1e-3
+
+
+def test_ba_entry_points_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
+    """build_ba_problem, the BA problem generators and slam_backend default to
+    the GPU and raise where there is none (checked here by hiding the card)."""
+    from vision_slam_frontend_tpu_torch.backend.tracks import build_ba_problem
+    from vision_slam_frontend_tpu_torch.cli import slam_backend
+    from vision_slam_frontend_tpu_torch.io.synthetic import make_problem, synthetic_ba_problem
+    from vision_slam_frontend_tpu_torch.types.slam_types import (
+        FeatureMatch, RobotPose, SLAMNode, SLAMProblem, VisionFactor, VisionFeature,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    nodes = [SLAMNode(i, float(i), RobotPose(np.zeros(3), np.array([1.0, 0, 0, 0])),
+                      [VisionFeature(0, np.zeros(2), np.array([0.0, 0.0, 5.0]))]) for i in range(2)]
+    problem = SLAMProblem(nodes=nodes, vision_factors=[VisionFactor(0, 1, [FeatureMatch(0, 0)])])
+    for call in (lambda: build_ba_problem(problem), lambda: synthetic_ba_problem(P=8, L=64),
+                 lambda: make_problem(8, 64, 3),
+                 lambda: slam_backend.main(["--input", str(tmp_path / "p.npz"), "--output", str(tmp_path / "o.npz")])):
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            call()
+    assert build_ba_problem(problem, device="cpu").num_landmarks == 128

@@ -1,7 +1,8 @@
 """The port stands alone: with `jax` and the JAX package made unimportable,
 every module of `vision_slam_frontend_tpu_torch` and `chip_smoke.py` still
-imports; and the port's own copies of the synthetic world and the host
-quaternion helpers give the JAX package's arrays exactly.
+imports; and the port's own copies of the synthetic world, the BA problem
+generators and the host quaternion helpers give the JAX package's arrays
+exactly.
 """
 
 import pkgutil
@@ -57,7 +58,11 @@ def _port_modules():
 def test_port_and_chip_smoke_import_without_jax():
     modules = _port_modules() + ["torch_edge_cases"]  # chip_smoke's edge-case inputs
     assert {"vision_slam_frontend_tpu_torch.ops.akaze", "vision_slam_frontend_tpu_torch.ops.kernel_variants",
-            "vision_slam_frontend_tpu_torch.cli.slam_frontend"} <= set(modules)
+            "vision_slam_frontend_tpu_torch.cli.slam_frontend", "vision_slam_frontend_tpu_torch.cli.slam_backend",
+            "vision_slam_frontend_tpu_torch.cli.evaluate", "vision_slam_frontend_tpu_torch.backend.ba",
+            "vision_slam_frontend_tpu_torch.backend.residuals", "vision_slam_frontend_tpu_torch.backend.tracks",
+            "vision_slam_frontend_tpu_torch.backend.metrics", "vision_slam_frontend_tpu_torch.utils.checks",
+            "vision_slam_frontend_tpu_torch.utils.device"} <= set(modules)
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, *modules, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
@@ -100,3 +105,37 @@ def test_np_geom_equals_the_jax_packages(seed):
                        ("axis_angle_to_matrix", (aa,)), ("quat_multiply_batch", (q, q[::-1])),
                        ("quat_to_axis_angle", (a,))):
         np.testing.assert_array_equal(getattr(tgeom, name)(*args), getattr(jgeom, name)(*args), err_msg=name)
+
+
+def _jax_arrays(problem) -> dict:
+    return {f: np.asarray(getattr(problem, f)) for f in problem.__dataclass_fields__ if getattr(problem, f) is not None}
+
+
+def _assert_same_arrays(ours: dict, theirs: dict):
+    assert sorted(ours) == sorted(theirs)
+    for k, v in theirs.items():
+        assert ours[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(ours[k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_ba_problem_generators_equal_the_jax_packages(seed):
+    """synthetic_ba_problem (mono and stereo, with and without gather tables)
+    and the copy of bench_ba.make_problem (plain and clean, with its ground
+    truth): every array equal, index arrays in the JAX package's int32."""
+    import bench_ba
+
+    for kw in (dict(stereo=False), dict(stereo=True, pose_walk=0.01, gather_tables=False)):
+        jcam, jp, jt, jl = jsyn.synthetic_ba_problem(P=24, L=300, seed=seed, **kw)
+        cam, p, t, lm = tsyn.synthetic_ba_problem(P=24, L=300, seed=seed, device="cpu", **kw)
+        _assert_same_arrays(p.to_numpy(), _jax_arrays(jp))
+        np.testing.assert_array_equal(t, jt)
+        np.testing.assert_array_equal(lm, jl)
+        for f in jcam.__dataclass_fields__:
+            np.testing.assert_array_equal(getattr(cam, f).numpy(), np.asarray(getattr(jcam, f)), err_msg=f)
+    for clean in (False, True):
+        jp, jt, jl = bench_ba.make_problem(40, 600, 4, seed=seed, return_gt=True, clean=clean)
+        p, t, lm = tsyn.make_problem(40, 600, 4, seed=seed, return_gt=True, clean=clean, device="cpu")
+        _assert_same_arrays(p.to_numpy(), _jax_arrays(jp))
+        np.testing.assert_array_equal(t, jt)
+        np.testing.assert_array_equal(lm, jl)

@@ -16,7 +16,7 @@ import argparse
 import sys
 import time
 
-import torch
+from vision_slam_frontend_tpu_torch.utils.device import resolve_device
 
 
 def iter_synthetic(spec: str):
@@ -30,18 +30,6 @@ def iter_synthetic(spec: str):
     for f in generate_sequence(num_frames=n, step=step, rig=SyntheticRig()):
         yield ("odometry", f.timestamp, (f.odom_translation, f.odom_rotation))
         yield ("stereo", f.timestamp, (f.left, f.right))
-
-
-def resolve_device(name: str) -> torch.device:
-    """The requested device; a CUDA request without a CUDA device fails."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available (the kernels run "
-            "only on the GPU; pass --device cpu to run their plain PyTorch "
-            "versions on the CPU)"
-        )
-    return device
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -1,7 +1,7 @@
-"""SLAMProblem serialization to npz (port of io/serialize.py's writer).
+"""SLAMProblem serialization to npz (port of io/serialize.py).
 
-The same keys, shapes and dtypes as the JAX package writes, so either
-package's output feeds the same BA backend.
+The same keys, shapes and dtypes as the JAX package writes and reads, so
+either package's output feeds either package's BA backend.
 """
 
 from __future__ import annotations
@@ -10,7 +10,15 @@ from typing import Optional
 
 import numpy as np
 
-from vision_slam_frontend_tpu_torch.types.slam_types import SLAMProblem
+from vision_slam_frontend_tpu_torch.types.slam_types import (
+    FeatureMatch,
+    OdometryFactor,
+    RobotPose,
+    SLAMNode,
+    SLAMProblem,
+    VisionFactor,
+    VisionFeature,
+)
 
 FORMAT_VERSION = 1
 
@@ -68,6 +76,56 @@ def problem_to_arrays(problem: SLAMProblem, node_track_ids: Optional[list] = Non
     return out
 
 
+def arrays_to_problem(data: dict) -> SLAMProblem:
+    """Inverse of problem_to_arrays."""
+    nodes = []
+    feat_node = np.asarray(data["feat_node"])
+    has_r = data.get("feat_has_right")
+    px_r = data.get("feat_pixel_right")
+    for k, nid in enumerate(np.asarray(data["nodes_id"])):
+        sel = np.nonzero(feat_node == nid)[0]
+        feats = [
+            VisionFeature(
+                int(data["feat_idx"][i]),
+                np.asarray(data["feat_pixel"][i]),
+                np.asarray(data["feat_point3d"][i]),
+                pixel_right=np.asarray(px_r[i]) if has_r is not None and bool(has_r[i]) else None,
+            )
+            for i in sel
+        ]
+        nodes.append(
+            SLAMNode(
+                node_idx=int(nid),
+                timestamp=float(data["nodes_timestamp"][k]),
+                pose=RobotPose(loc=np.asarray(data["nodes_loc"][k]), angle=np.asarray(data["nodes_quat"][k])),
+                features=feats,
+            )
+        )
+    vfs = []
+    vfm_factor = np.asarray(data["vfm_factor"])
+    for i in range(len(np.asarray(data["vf_pose_initial"]))):
+        sel = np.nonzero(vfm_factor == i)[0]
+        vfs.append(
+            VisionFactor(
+                pose_idx_initial=int(data["vf_pose_initial"][i]),
+                pose_idx_current=int(data["vf_pose_current"][i]),
+                feature_matches=[
+                    FeatureMatch(int(data["vfm_initial"][j]), int(data["vfm_current"][j])) for j in sel
+                ],
+            )
+        )
+    ofs = [
+        OdometryFactor(
+            pose_i=int(data["of_pose_i"][i]),
+            pose_j=int(data["of_pose_j"][i]),
+            translation=np.asarray(data["of_translation"][i]),
+            rotation=np.asarray(data["of_rotation"][i]),
+        )
+        for i in range(len(np.asarray(data["of_pose_i"])))
+    ]
+    return SLAMProblem(nodes=nodes, vision_factors=vfs, odometry_factors=ofs)
+
+
 def save_problem(
     path: str, problem: SLAMProblem, config=None, node_track_ids: Optional[list] = None
 ) -> None:
@@ -85,3 +143,8 @@ def save_problem(
         data["calib_dist_right"] = np.array([ir.k1, ir.k2, ir.p1, ir.p2, ir.k3], np.float32)
         data["calib_right_extrinsic"] = np.asarray(config.calib["right_extrinsic"], np.float32)
     np.savez_compressed(path, **data)
+
+
+def load_problem(path: str) -> SLAMProblem:
+    with np.load(path) as data:
+        return arrays_to_problem(dict(data))

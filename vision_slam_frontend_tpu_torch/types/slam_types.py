@@ -1,6 +1,8 @@
-"""SLAM problem containers on the host (port of the host side of
-types/slam_types.py): plain dataclasses over numpy. Quaternions are
-[w, x, y, z]; a RobotPose maps robot-frame points into the world frame.
+"""SLAM problem containers (port of types/slam_types.py): the host side as
+plain dataclasses over numpy, and the bundle-adjustment problem
+(`BAProblem`) as a dataclass of fixed-capacity masked torch tensors.
+Quaternions are [w, x, y, z]; a RobotPose maps robot-frame points into the
+world frame.
 """
 
 from __future__ import annotations
@@ -88,3 +90,108 @@ class SLAMProblem:
                 (len(self.vision_factors) / (n - 1)) if n > 1 else 0.0,
             )
         )
+
+
+# Index fields: int64 tensors in the port (torch's gathers want int64), int32
+# arrays in the JAX package's numpy form and npz files.
+_INDEX_FIELDS = ("obs_pose", "obs_landmark", "odom_i", "odom_j", "pose_obs", "lm_obs")
+
+
+@dataclasses.dataclass
+class BAProblem:
+    """Bundle-adjustment problem as flat, fixed-capacity masked tensors
+    (port of the JAX package's BAProblem). Shapes:
+
+      poses_t (P, 3), poses_q (P, 4) [w, x, y, z], pose_mask (P,)
+      landmarks (L, 3), landmark_mask (L,)
+      obs_pose, obs_landmark (N,) int64; obs_pixel (N, 2); obs_mask (N,)
+      obs_pixel_right (N, 2), obs_right_mask (N,): the stereo constraint
+      odom_i, odom_j (Q,) int64; odom_t (Q, 3), odom_q (Q, 4), odom_mask (Q,)
+
+    Optional gather tables (backend/tracks.build_gather_tables): pose_obs
+    (P, Mp) lists pose p's observations, lm_obs (L, Ml) landmark l's as
+    positions in the pose-major flat (P*Mp) space, each with its mask. The
+    solver's large reductions run as dense gathers + sums over them; None
+    means scatter sums. pose_fixed (P,) bool freezes poses.
+    """
+
+    poses_t: Any
+    poses_q: Any
+    pose_mask: Any
+    landmarks: Any
+    landmark_mask: Any
+    obs_pose: Any
+    obs_landmark: Any
+    obs_pixel: Any
+    obs_mask: Any
+    obs_pixel_right: Any = None
+    obs_right_mask: Any = None
+    odom_i: Any = None
+    odom_j: Any = None
+    odom_t: Any = None
+    odom_q: Any = None
+    odom_mask: Any = None
+    pose_obs: Any = None
+    pose_obs_mask: Any = None
+    lm_obs: Any = None
+    lm_obs_mask: Any = None
+    pose_fixed: Any = None
+
+    @property
+    def num_poses(self) -> int:
+        return self.poses_t.shape[0]
+
+    @property
+    def num_landmarks(self) -> int:
+        return self.landmarks.shape[0]
+
+    @property
+    def num_observations(self) -> int:
+        return self.obs_pixel.shape[0]
+
+    @property
+    def device(self):
+        return self.poses_t.device
+
+    def replace(self, **changes) -> "BAProblem":
+        return dataclasses.replace(self, **changes)
+
+    def to(self, device) -> "BAProblem":
+        return self.replace(**{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self) if getattr(self, f.name) is not None
+        })
+
+    @classmethod
+    def from_numpy(cls, arrays, device="cpu") -> "BAProblem":
+        """Tensors on `device` from numpy arrays (a BAProblem of arrays, such
+        as the JAX package's, or a dict of them): index fields as int64,
+        masks as bool, the rest as float32."""
+        import torch
+
+        if not isinstance(arrays, dict):
+            arrays = {f.name: getattr(arrays, f.name) for f in dataclasses.fields(arrays)}
+        out = {}
+        for f in dataclasses.fields(cls):
+            v = arrays.get(f.name)
+            if v is None:
+                continue
+            a = np.asarray(v)
+            if f.name in _INDEX_FIELDS:
+                a = a.astype(np.int64)
+            elif a.dtype != bool:
+                a = a.astype(np.float32)
+            out[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
+        return cls(**out)
+
+    def to_numpy(self) -> dict:
+        """{field: numpy array} in the JAX package's dtypes (index fields
+        int32); None fields are left out."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if v is None:
+                continue
+            a = v.detach().cpu().numpy()
+            out[f.name] = a.astype(np.int32) if f.name in _INDEX_FIELDS else a
+        return out
