@@ -63,9 +63,32 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               bit-equal; (d) one iteration at L=500k, N=2.5M under dense and
               PCG: time and peak memory; (e) the slam_backend CLI on phase
               5's synthetic:20 npz on the card and on the CPU: the same keys,
-              shapes and dtypes, poses and landmarks within (a)'s tolerances
-Then a JSON line of every kernel shape's numbers and the BA numbers, the
-kernels JSON line and, last, the result line.
+              shapes and dtypes, poses and landmarks within (a)'s tolerances;
+              (f) the first dense LM step at the benchmark shape (lambda
+              1e-3) in float32 and with every tensor in float64, on the card:
+              the relative difference of the step and of the cost after it
+  8. local_ba windowed local BA (plain torch; its path runs the frontend's
+              kernels): (a) the CLI on synthetic:20 with --local_ba 8 on the
+              card (launch counts from that run) and on the CPU: the same
+              keyframes and int fields, each local solve's accept/reject
+              decisions compared (flips counted and bounded), final poses
+              within one tolerance with or without flips, the final cost of
+              each solve without flips within its own; (b) a soak, the CLI
+              on synthetic:30 with --local_ba 8 in a process of its own
+              (640x480, K=512, W=10; every keyframe textured): the first
+              keyframe's local-BA host time apart from the median, steady
+              frames/s and keyframes/s, frame latency percentiles, peak RSS
+              (sampled after each frame) and device memory, beside a
+              15-frame soak's (their growth), and the RSS of a fresh process
+              stage by stage; then the window ending at keyframe 20 solved
+              again: synced and enqueue ms (median of 5), launches and
+              device ms under torch.profiler;
+              (c) one steady pipelined dispatch under sync-debug "error";
+              (d) slam_merge of two overlapping sessions made with the CLI,
+              on the card and on the CPU: the same keys, shapes and dtypes,
+              poses and landmarks within phase 7 (a)'s tolerances
+Then a JSON line of every kernel shape's numbers and the BA and local-BA
+numbers, the kernels JSON line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -112,6 +135,34 @@ BA_POSE_ATOL = 1e-2
 BA_LM_ATOL = 0.1
 BA_FLIP_COST_RTOL = 5e-3
 BA_REPS = 5
+# The JAX package's first dense step at the benchmark shape, on the CPU: the
+# cost after it is 3.2% off the float64 step's (ROADMAP C; no jax on the card's
+# machine, so a CPU figure).
+BA_REFERENCE_STEP_COST_REL = 0.032
+
+# Phase 8 (local BA): the CLI's window, the soak's lengths and the merged
+# sessions. Card against CPU on synthetic:20: float32 PCG at small damping
+# takes other accept/reject decisions after a 1-ulp change. On an H100, 7 of
+# 96 decisions flipped, the final poses were 3.5e-5 m apart and the solves
+# without flips ended within 1.4e-5 of each other's cost (the log's 4
+# decimals on a cost of 7); with the card's solve disabled, 86 decisions
+# flipped and the poses were 1.9e-2 m apart. The final poses are held to
+# LBA_POSE_ATOL (m) with or without flips, at most LBA_MAX_FLIPS of the
+# decisions may flip, and each solve whose decisions all agree has its final
+# cost within LBA_COST_RTOL of the CPU's.
+LBA_WINDOW = 8
+LBA_POSE_ATOL = 1e-3
+LBA_MAX_FLIPS = 0.25
+LBA_COST_RTOL = 1e-4
+# The soak: every frame a keyframe (synthetic steps of 0.25 m), at two lengths
+# inside the textured stretch of the synthetic world, whose ground texture
+# thins out: from keyframe 29 on fewer than 100 features survive, and past
+# about 70 none. The solve is timed on the window that ends at keyframe
+# LBA_TIMING_KEYFRAMES.
+LBA_SOAK_FRAMES = (15, 30)
+LBA_TEXTURED_FEATURES = 100
+LBA_TIMING_KEYFRAMES = 20
+MERGE_SESSION_B = "synthetic:12:0.3"
 
 # The H100's published peaks (NVIDIA data sheet, SXM, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -1065,6 +1116,21 @@ def phase_ba_cli(npz: str, dev, tmp) -> str:
             f"with equal shapes and dtypes, poses max diff {pose:.2e}, landmarks {lm:.2e}, final cost rel {rel:.2e}")
 
 
+def phase_ba_first_step(dev) -> tuple[str, dict]:
+    """(f): the first dense LM step at the benchmark shape, lambda 1e-3, in
+    float32 and in float64 on the card (ROADMAP C's plateau)."""
+    from vision_slam_frontend_tpu_torch.backend.dense_plateau import SHAPE, benchmark_problem, first_step
+
+    problem, cam, _ = benchmark_problem(dev)
+    n = first_step(problem, cam)
+    check(bool(np.isfinite(n["cost32"]) and np.isfinite(n["cost64"])), f"first dense step: non-finite cost ({n})")
+    P, L, _ = SHAPE
+    return (f"(f) first dense LM step, P={P} L={L} clean, lambda 1e-3, float32 against float64 on the card: "
+            f"pose step off by {n['step_rel_pose']:.4e} (relative norm), landmark step {n['step_rel_lm']:.4e}; "
+            f"cost after the step {n['cost32']:.1f} against {n['cost64']:.1f} (rel {n['cost_rel']:.4e}); the JAX "
+            f"package's step on the CPU: {BA_REFERENCE_STEP_COST_REL:.1%} in the cost after it (ROADMAP C)"), n
+
+
 def phase_ba(ck, dev, npz: str, tmp, card: str):
     """Phase 7, one line per part as it ends; returns (the BA numbers, the
     launch counts of the frontend kernels while it ran: none)."""
@@ -1081,9 +1147,309 @@ def phase_ba(ck, dev, npz: str, tmp, card: str):
     say("7 ba", f"(d) [{card}] " + " | ".join(big_lines))
     torch.cuda.empty_cache()
     say("7 ba", "(e) " + phase_ba_cli(npz, dev, tmp))
+    line, first_step = phase_ba_first_step(dev)
+    say("7 ba", f"[{card}] " + line)
+    torch.cuda.empty_cache()
     launches = dict(ck.LAUNCHES)
     check_launches("BA", launches, (), absent=tuple(KERNELS))
-    return {"scale": scale, "big": big}, launches
+    return {"scale": scale, "big": big, "first_step": first_step}, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: windowed local BA and session merging
+# ---------------------------------------------------------------------------
+
+LBA_LINE = (r"\[local-ba\] applied the solve dispatched at keyframe (\d+): refined (\d+) poses "
+            r"\(cost ([-\d.e+naif]+) -> ([-\d.e+naif]+), steps accepted ([01]+)\)")
+
+
+def local_ba_solves(printed: str) -> dict:
+    """{keyframe: (cost0, cost, accept pattern)} from the CLI's -v 2 lines."""
+    import re
+
+    return {int(m[0]): (float(m[2]), float(m[3]), m[4]) for m in re.findall(LBA_LINE, printed)}
+
+
+def perf_numbers(printed: str) -> dict:
+    """The CLI's [perf] lines as numbers (peak device memory: None where the
+    run was not on a GPU)."""
+    import re
+
+    num = r"([\d.]+)"
+    patterns = {
+        "frames": rf"\[perf\] {num} stereo frames", "keyframes": rf"stereo frames, {num} keyframes",
+        "seconds": rf"keyframes in {num}s", "fps": rf"\({num} frames/s", "kps": rf"frames/s, {num} keyframes/s\)",
+        "p50_ms": rf"p50={num}", "p90_ms": rf"p90={num}", "p99_ms": rf"p99={num}", "max_ms": rf"max={num}",
+        "peak_rss_mb": rf"peak RSS {num} MB", "peak_device_mb": rf"peak device memory {num} MB",
+        "lba_first_ms": rf"first {num} ms", "lba_median_ms": rf"median {num} ms over",
+        "lba_keyframes": rf"ms over {num} keyframes", "steady_fps": rf"after the first dispatch {num} frames/s",
+        "steady_kps": rf"frames/s, {num} keyframes/s$",
+    }
+    out = {}
+    for key, pat in patterns.items():
+        m = re.search(pat, printed, re.M)
+        check(m is not None or key == "peak_device_mb", f"CLI output has no {key} ({pat})")
+        out[key] = float(m.group(1)) if m else None
+    return out
+
+
+def run_cli_quiet(argv) -> tuple[int, str]:
+    import contextlib
+    import io
+
+    from vision_slam_frontend_tpu_torch.cli.slam_frontend import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_lba_parity(ck, dev, tmp):
+    """(a): the CLI with --local_ba on the card and on the CPU. Returns (the
+    card run's launches, the card npz, the line, numbers)."""
+    from vision_slam_frontend_tpu_torch.backend.local_ba import SOLVE
+
+    argv = ["--input", MAIN_INPUT, "--local_ba", str(LBA_WINDOW), "-v", "2"]
+    outs, solves = {}, {}
+    for where, device in (("card", str(dev)), ("cpu", "cpu")):
+        outs[where] = os.path.join(tmp, f"lba_{where}.npz")
+        ck.reset_launch_counts()
+        rc, printed = run_cli_quiet([*argv, "--output", outs[where], "--device", device])
+        check(rc == 0, f"CLI --local_ba --device {device}: exit code {rc}")
+        if where == "card":
+            launches = dict(ck.LAUNCHES)
+        solves[where] = local_ba_solves(printed)
+    check_launches("local BA CLI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
+                   absent=("patch_windows",))
+    a, b = np.load(outs["card"]), np.load(outs["cpu"])
+    check(sorted(a.files) == sorted(b.files), "local BA npz keys differ between the card and the CPU")
+    n_int = 0
+    for k in b.files:
+        check(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, f"local BA npz {k}: shape/dtype differ")
+        if a[k].dtype.kind in "iub":
+            check(bool(np.array_equal(a[k], b[k])), f"local BA npz {k}: integers differ between the card and the CPU")
+            n_int += 1
+    check(sorted(solves["card"]) == sorted(solves["cpu"]) and len(solves["card"]) == len(a["nodes_id"]) - 3,
+          f"local solves at keyframes {sorted(solves['card'])} on the card, {sorted(solves['cpu'])} on the CPU")
+    decisions = sum(len(v[2]) for v in solves["cpu"].values())
+    flips = sum(x != y for k in solves["cpu"] for x, y in zip(solves["card"][k][2], solves["cpu"][k][2]))
+    flipped = sorted(k for k in solves["cpu"] if solves["card"][k][2] != solves["cpu"][k][2])
+    pose = float(max(np.abs(a["nodes_loc"] - b["nodes_loc"]).max(), np.abs(a["nodes_quat"] - b["nodes_quat"]).max()))
+    check(bool(np.isfinite(a["nodes_loc"]).all()), "local BA: non-finite poses on the card")
+    check(pose <= LBA_POSE_ATOL, f"local BA card vs CPU: poses differ by {pose:.3e} m ({flips} flips), beyond "
+          f"{LBA_POSE_ATOL}")
+    check(flips <= LBA_MAX_FLIPS * decisions, f"local BA card vs CPU: {flips} of {decisions} decisions flip")
+    agree = [k for k in solves["cpu"] if k not in flipped]
+    cost_rel = max((abs(solves["card"][k][1] - solves["cpu"][k][1]) / max(solves["cpu"][k][1], 1e-12)
+                    for k in agree), default=0.0)
+    check(cost_rel <= LBA_COST_RTOL, f"local BA card vs CPU: a solve's final cost differs by {cost_rel:.3e} (rel)")
+    line = (f"(a) CLI {MAIN_INPUT} --local_ba {LBA_WINDOW}, card against CPU: {len(a['nodes_id'])} keyframes each, "
+            f"{n_int} int/bool arrays equal, {len(solves['cpu'])} local solves of {SOLVE.iters} LM iterations, "
+            f"{flips} of {decisions} accept/reject decisions flipped (at keyframes {flipped}; limit "
+            f"{LBA_MAX_FLIPS:.0%}), final poses max diff {pose:.3e} m (limit {LBA_POSE_ATOL}), the "
+            f"{len(agree)} solves without flips: final costs max rel diff {cost_rel:.3e} (limit {LBA_COST_RTOL}); "
+            f"launches {launches}")
+    return launches, outs["card"], line, dict(keyframes=int(len(a["nodes_id"])), solves=len(solves["cpu"]),
+                                              decisions=decisions, flips=flips, pose_diff=pose, cost_rel=cost_rel)
+
+
+def soak(dev, tmp, frames: int) -> tuple[dict, str]:
+    """The CLI with --local_ba in a process of its own (its RSS and device
+    memory are the soak's alone): ([perf] numbers with the count of thin
+    keyframes, those with fewer than LBA_TEXTURED_FEATURES features; output
+    npz)."""
+    out = os.path.join(tmp, f"soak{frames}.npz")
+    cmd = [sys.executable, "-m", "vision_slam_frontend_tpu_torch.cli.slam_frontend",
+           "--input", f"synthetic:{frames}", "--output", out, "--local_ba", str(LBA_WINDOW), "--device", str(dev)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"soak CLI exit code {proc.returncode}: {proc.stderr[-2000:]}")
+    n = perf_numbers(proc.stdout)
+    check(n["peak_device_mb"] is not None or dev.type != "cuda", "the soak printed no peak device memory")
+    z = np.load(out)
+    features = np.array([int((z["feat_node"] == i).sum()) for i in z["nodes_id"]])
+    n["thin_keyframes"] = int((features < LBA_TEXTURED_FEATURES).sum())
+    return n, out
+
+
+# A fresh process's resident set (MB) after each stage of what the CLI
+# loads, then after the CLI itself on a few frames.
+BARE_PROCESS = """
+import contextlib, io, json, os, tempfile
+def mb():
+    return int(open("/proc/self/statm").read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+import torch
+out = {"torch imported": mb()}
+from vision_slam_frontend_tpu_torch.ops import _build
+x = torch.ones(64, 64, device="cuda")
+_build.library()
+torch.linalg.cholesky_ex(x @ x.T + 64 * torch.eye(64, device="cuda"))
+torch.cuda.synchronize()
+out["CUDA context, kernel library, cuBLAS and cuSOLVER"] = mb()
+from vision_slam_frontend_tpu_torch.cli.slam_frontend import main
+with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+    main(["--input", "synthetic:6", "--output", tmp + "/p.npz", "--local_ba", "8"])
+out["the CLI on synthetic:6 --local_ba 8"] = mb()
+print(json.dumps(out))
+"""
+
+
+def rss_stages() -> dict:
+    proc = subprocess.run([sys.executable, "-c", BARE_PROCESS], capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"RSS stages: exit code {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_lba_soak(dev, tmp) -> tuple[dict, str, str]:
+    """(b), first half: the soak at both lengths and the RSS stages of a
+    fresh process. Returns (numbers, the longer soak's output npz, line)."""
+    short, _ = soak(dev, tmp, LBA_SOAK_FRAMES[0])
+    n, out = soak(dev, tmp, LBA_SOAK_FRAMES[1])
+    n["short"] = short
+    n["rss_stages"] = stages = rss_stages()
+    line = (f"(b) soak, CLI synthetic:{LBA_SOAK_FRAMES[1]} --local_ba {LBA_WINDOW} (640x480, K=512, W=10) in its own "
+            f"process: {n['frames']:.0f} frames, {n['keyframes']:.0f} keyframes in {n['seconds']:.2f} s "
+            f"({n['fps']:.2f} frames/s, {n['kps']:.2f} keyframes/s, warm-up included), {n['thin_keyframes']} "
+            f"keyframes with fewer than {LBA_TEXTURED_FEATURES} features; warm-up: the first "
+            f"keyframe's local BA {n['lba_first_ms']:.1f} ms host time against a median of {n['lba_median_ms']:.1f} ms "
+            f"over {n['lba_keyframes']:.0f}; steady after it {n['steady_fps']:.2f} frames/s, {n['steady_kps']:.2f} "
+            f"keyframes/s (the synthetic renderer runs on the host inside the loop); frame latency ms p50 "
+            f"{n['p50_ms']} p90 {n['p90_ms']} p99 {n['p99_ms']} max {n['max_ms']}; peak RSS {n['peak_rss_mb']:.0f} "
+            f"MB, peak device memory {n['peak_device_mb']} MB | at {LBA_SOAK_FRAMES[0]} frames "
+            f"({short['thin_keyframes']} thin keyframes): peak RSS {short['peak_rss_mb']:.0f} MB, peak device memory "
+            f"{short['peak_device_mb']} MB, p50 {short['p50_ms']} ms; growth over the last "
+            f"{LBA_SOAK_FRAMES[1] - LBA_SOAK_FRAMES[0]} frames: RSS {n['peak_rss_mb'] - short['peak_rss_mb']:+.0f} MB, "
+            f"device {n['peak_device_mb'] - short['peak_device_mb']:+.1f} MB | RSS of a fresh process after "
+            + ", ".join(f"{k} {v:.0f} MB" for k, v in stages.items()))
+    return n, out, line
+
+
+def lba_window(npz: str, dev):
+    """The soak's window ending at keyframe LBA_TIMING_KEYFRAMES, as that
+    keyframe's dispatch builds it: (config, the SLAMProblem up to that
+    keyframe, its window's device problem)."""
+    from vision_slam_frontend_tpu_torch.backend.local_ba import slice_problem, window_problem
+    from vision_slam_frontend_tpu_torch.io.serialize import load_problem
+
+    from vision_slam_frontend_tpu_torch.types.slam_types import SLAMProblem
+
+    config = make_config("orb")
+    full, n = load_problem(npz), LBA_TIMING_KEYFRAMES
+    problem = SLAMProblem(  # the problem as it stood when keyframe n arrived
+        nodes=full.nodes[:n],
+        vision_factors=[f for f in full.vision_factors if max(f.pose_idx_initial, f.pose_idx_current) < n],
+        odometry_factors=[f for f in full.odometry_factors if max(f.pose_i, f.pose_j) < n],
+    )
+    sub = slice_problem(problem, n - LBA_WINDOW)
+    return config, problem, window_problem(sub, config, LBA_WINDOW, 2, dev)
+
+
+def phase_lba_solve(npz: str, dev):
+    """(b), second half, and (c): one steady window solved again: synced and
+    enqueue ms (median of 5), launches and device ms of one solve under
+    torch.profiler; then one pipelined dispatch under sync-debug "error"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_slam_frontend_tpu_torch.backend.local_ba import SOLVE, LocalBAState, _solve_window, windowed_local_ba
+
+    config, problem, prob = lba_window(npz, dev)
+    cam = LocalBAState().camera(config, dev)
+    shape = dict(P=prob.num_poses, L=prob.num_landmarks, N=prob.num_observations,
+                 valid_obs=int(prob.obs_mask.sum()), valid_landmarks=int(prob.landmark_mask.sum()))
+    out = _solve_window(cam, prob).cpu()  # warm-up
+    check(bool(torch.isfinite(out).all()), "local solve: non-finite result")
+    synced, enqueue = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = _solve_window(cam, prob)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e3)
+        enqueue.append((t1 - t0) * 1e3)
+    check(torch.equal(packed.cpu(), out), "local solve: reruns differ")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _solve_window(cam, prob)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3 if device else None
+
+    state = LocalBAState()
+    windowed_local_ba(problem, config, window=LBA_WINDOW, pipeline=True, state=state, device=dev)  # warm-up
+    state.flush()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        windowed_local_ba(problem, config, window=LBA_WINDOW, pipeline=True, state=state, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(state.in_flight, "the pipelined dispatch left nothing in flight")
+    updated, info = state.flush()
+    check(updated == min(LBA_WINDOW, len(problem.nodes)) - 2 and np.isfinite(info["cost"]),
+          f"pipelined solve: {updated} poses, {info}")
+    n = dict(window=shape, synced_ms=statistics.median(synced), enqueue_ms=statistics.median(enqueue),
+             launches=launches or None, device_ms=device_ms)
+    line = (f"the window ending at keyframe {LBA_TIMING_KEYFRAMES} ({shape}) solved again, {SOLVE.iters} LM x {SOLVE.cg_iters} CG iterations: "
+            f"{n['synced_ms']:.2f} ms synced, {n['enqueue_ms']:.2f} ms enqueue (medians of 5); "
+            + ("launches not measured" if n["launches"] is None else f"{n['launches']} launches") + ", "
+            + ("device time not measured" if device_ms is None else f"{device_ms:.2f} ms device")
+            + " (one solve under torch.profiler) | (c) a steady pipelined dispatch under sync-debug 'error': no "
+            f"host sync; its flush refined {updated} poses, cost {info['history'][0]:.1f} -> {info['cost']:.1f}")
+    return n, line
+
+
+def phase_merge(dev, session_a: str, tmp) -> str:
+    """(d): slam_merge of two overlapping sessions (session A from (a), B a
+    CLI run at another pace from the same start), on the card and the CPU."""
+    from vision_slam_frontend_tpu_torch.cli.slam_merge import main as merge_main
+
+    session_b = os.path.join(tmp, "session_b.npz")
+    rc, _ = run_cli_quiet(["--input", MERGE_SESSION_B, "--output", session_b, "--device", str(dev)])
+    check(rc == 0, f"CLI {MERGE_SESSION_B}: exit code {rc}")
+    outs, summary = {}, []
+    for where, device in (("card", str(dev)), ("cpu", "cpu")):
+        import contextlib
+        import io
+
+        outs[where] = os.path.join(tmp, f"merged_{where}.npz")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = merge_main(["--inputs", session_a, session_b, "--output", outs[where], "--device", device])
+        check(rc == 0, f"slam_merge --device {device}: exit code {rc}")
+        if where == "card":
+            summary = [ln for ln in buf.getvalue().splitlines() if ln.startswith(("Merged", "Joint BA"))]
+    a, b = np.load(outs["card"]), np.load(outs["cpu"])
+    check(sorted(a.files) == sorted(b.files), "slam_merge npz keys differ between the card and the CPU")
+    for k in b.files:
+        check(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, f"slam_merge npz {k}: shape/dtype differ")
+        if a[k].dtype.kind in "iub":
+            check(bool(np.array_equal(a[k], b[k])), f"slam_merge npz {k}: integers differ")
+    check(bool(np.isfinite(a["ba_landmarks"]).all() and np.isfinite(a["nodes_loc"]).all()), "slam_merge: non-finite")
+    pose = float(max(np.abs(a["nodes_loc"] - b["nodes_loc"]).max(), np.abs(a["nodes_quat"] - b["nodes_quat"]).max()))
+    lm = float(np.abs(a["ba_landmarks"] - b["ba_landmarks"]).max())
+    check(pose <= BA_POSE_ATOL and lm <= BA_LM_ATOL, f"slam_merge card vs CPU: poses {pose:.2e}, landmarks {lm:.2e}")
+    return (f"(d) slam_merge of {MAIN_INPUT} --local_ba {LBA_WINDOW} and {MERGE_SESSION_B}: " + "; ".join(summary)
+            + f" | card against CPU: {len(a.files)} keys with equal shapes and dtypes, integers equal, poses max diff "
+            f"{pose:.2e} (limit {BA_POSE_ATOL}), landmarks {lm:.2e} (limit {BA_LM_ATOL})")
+
+
+def phase_local_ba(ck, dev, tmp, card: str):
+    """Phase 8, one line per part as it ends; returns (numbers, the launch
+    counts of the path: the CLI's card run in (a))."""
+    launches, session_a, line, parity = phase_lba_parity(ck, dev, tmp)
+    say("8 local_ba", line)
+    soak, soak_npz, line = phase_lba_soak(dev, tmp)
+    say("8 local_ba", f"[{card}] " + line)
+    solve, line = phase_lba_solve(soak_npz, dev)
+    say("8 local_ba", f"[{card}] " + line)
+    say("8 local_ba", phase_merge(dev, session_a, tmp))
+    return {"parity": parity, "soak": soak, "solve": solve}, launches
 
 
 def main() -> int:
@@ -1173,15 +1539,17 @@ def main() -> int:
     say("6 timing", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
     ba_numbers, per_path["ba"] = phase_ba(ck, dev, os.path.join(tmp_dir.name, "orb_gpu.npz"), tmp_dir.name, smi)
+    say("7 ba", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+    lba_numbers, per_path["local_ba"] = phase_local_ba(ck, dev, tmp_dir.name, smi)
     tmp_dir.cleanup()
-    say("7 ba", f"whole run {time.perf_counter() - t_start:.1f} s")
+    say("8 local_ba", f"whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
     print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
                       "steps": {k: dict(zip(("ms", "enqueue_ms", "keyframes", "launches", "device_ms"), v))
                                 for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
                       "launch_floor_ms": floor_ms,
-                      "launches_per_path": per_path, "ba": ba_numbers}), flush=True)
+                      "launches_per_path": per_path, "ba": ba_numbers, "local_ba": lba_numbers}), flush=True)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])

@@ -62,7 +62,9 @@ def test_port_and_chip_smoke_import_without_jax():
             "vision_slam_frontend_tpu_torch.cli.evaluate", "vision_slam_frontend_tpu_torch.backend.ba",
             "vision_slam_frontend_tpu_torch.backend.residuals", "vision_slam_frontend_tpu_torch.backend.tracks",
             "vision_slam_frontend_tpu_torch.backend.metrics", "vision_slam_frontend_tpu_torch.utils.checks",
-            "vision_slam_frontend_tpu_torch.utils.device"} <= set(modules)
+            "vision_slam_frontend_tpu_torch.utils.device", "vision_slam_frontend_tpu_torch.backend.local_ba",
+            "vision_slam_frontend_tpu_torch.backend.merge", "vision_slam_frontend_tpu_torch.cli.slam_merge",
+            "vision_slam_frontend_tpu_torch.backend.dense_plateau"} <= set(modules)
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, *modules, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, cwd=ROOT, timeout=300,

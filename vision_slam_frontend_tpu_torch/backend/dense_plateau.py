@@ -1,0 +1,142 @@
+"""The dense-BA plateau study (ROADMAP C): at the BA benchmark's shape
+(P=500, L=100k, clean), dense LM stops above the ground-truth cost.
+
+Two measurements, on the device the caller names:
+- `first_step`: the first dense LM step at lambda 1e-3 in float32 against
+  the same step with every tensor in float64 (the solver's arithmetic path);
+- `ridge_trial`: dense LM under each rule of RIDGES for the equilibrated
+  ridge (ba._dense_solve_core's fixed 1e-3), in float32 and float64. The
+  rules are tried on a copy of the solve; the solver itself keeps 1e-3.
+
+Run: python -m vision_slam_frontend_tpu_torch.backend.dense_plateau
+[--device cuda] (one JSON line per measurement; about 30 s on an H100).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+from unittest import mock
+
+import numpy as np
+import torch
+
+from vision_slam_frontend_tpu_torch.backend import ba
+from vision_slam_frontend_tpu_torch.backend.metrics import ate_rmse
+from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
+from vision_slam_frontend_tpu_torch.utils.device import resolve_device
+
+SHAPE = (500, 100_000, 5)  # bench_ba's and tests/test_ba_scale_accuracy.py's
+ITERATIONS = 25
+CG_ITERATIONS = 32
+GROUND_TRUTH_COST = 43_711.0  # tests/test_ba_scale_accuracy.py:19
+# The equilibrated ridge as a function of the LM lambda.
+RIDGES = {
+    "1e-3 (the solver's)": lambda lam: 1e-3,
+    "max(lambda, 1e-6)": lambda lam: max(lam, 1e-6),
+    "clamp(10 lambda, 1e-6, 1e-3)": lambda lam: min(max(10.0 * lam, 1e-6), 1e-3),
+    "max(10 lambda, 1e-6)": lambda lam: max(10.0 * lam, 1e-6),
+    "max(100 lambda, 1e-6)": lambda lam: max(100.0 * lam, 1e-6),
+}
+
+
+def benchmark_problem(device):
+    """(problem, camera, ground-truth positions) of the benchmark shape."""
+    from vision_slam_frontend_tpu_torch.io.synthetic import make_problem
+
+    problem, gt_t, _ = make_problem(*SHAPE, return_gt=True, clean=True, device=device)
+    cam = CameraParams(fx=500.0, fy=500.0, cx=320.0, cy=240.0, R_cr=np.eye(3), t_cr=np.zeros(3)).to(device)
+    return problem, cam, gt_t
+
+
+def to_float64(problem, cam):
+    """The problem and camera with every floating tensor in float64."""
+    problem = problem.replace(**{
+        f.name: getattr(problem, f.name).double() for f in dataclasses.fields(problem)
+        if getattr(problem, f.name) is not None and getattr(problem, f.name).is_floating_point()
+    })
+    cam = dataclasses.replace(cam)
+    for f in dataclasses.fields(cam):
+        setattr(cam, f.name, getattr(cam, f.name).double())  # past CameraParams' float32 rule
+    return problem, cam
+
+
+def first_step(problem, cam) -> dict:
+    """The first dense LM step (lambda 1e-3) in float32 and in float64:
+    the relative differences of the pose and landmark steps' norms and of
+    the cost after the step."""
+    cfg = ba.BASolverConfig()
+    hd, wt, wr = (ba._round_f32(x) for x in (cfg.huber_delta, cfg.odom_t_weight, cfg.odom_r_weight))
+    out = {}
+    for name, (p, c) in (("float32", (problem, cam)), ("float64", to_float64(problem, cam))):
+        pm = ba._build_pm_inputs(p)
+        d_pose, d_lm, _ = ba._dense_core(pm, *ba._linearize_pm(c, p, pm, hd, wt, wr, True), p, 1e-3, True)
+        cost = float(ba.compute_cost(c, ba._apply_step(p, d_pose, d_lm), hd, wt, wr, True))
+        out[name] = (d_pose.double(), d_lm.double(), cost)
+    (p32, l32, c32), (p64, l64, c64) = out["float32"], out["float64"]
+    return dict(step_rel_pose=float((p32 - p64).norm() / p64.norm()),
+                step_rel_lm=float((l32 - l64).norm() / l64.norm()),
+                cost32=c32, cost64=c64, cost_rel=abs(c32 - c64) / c64)
+
+
+def _solve_core_with_ridge(S4, b, free, ridge: float):
+    """A copy of ba._dense_solve_core with `ridge` in place of its 1e-3."""
+    P = b.shape[0]
+    S2 = S4.permute(0, 2, 1, 3).reshape(6 * P, 6 * P)
+    free6 = free.repeat_interleave(6)
+    S2 = S2 * free6[:, None] * free6[None, :]
+    S2 = S2 + torch.diag(1.0 - free6)
+    d = torch.rsqrt(torch.diagonal(S2).clamp(min=1e-20))
+    S2e = S2 * d[:, None] * d[None, :] + ridge * torch.eye(6 * P, dtype=S2.dtype, device=S2.device)
+    chol, info = torch.linalg.cholesky_ex(S2e)
+    y = torch.linalg.solve_triangular(chol, (b.reshape(-1) * d)[:, None], upper=False)
+    xe = torch.linalg.solve_triangular(chol.mT, y, upper=True)[:, 0]
+    x = torch.where(info == 0, xe * d, float("nan"))
+    return x.reshape(P, 6) * free[:, None], torch.linalg.norm(b - (S2 @ x).reshape(P, 6))
+
+
+def _dense_core_with_ridge(ridge_of):
+    """ba._dense_core with the equilibrated ridge `ridge_of(lambda)`."""
+
+    def core(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan=None):
+        S4, b, free, V_inv, g_lm = ba._dense_assemble(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping,
+                                                      fix_first, plan)
+        d_pose, rrn = _solve_core_with_ridge(S4, b, free, ridge_of(float(lm_damping)))
+        lm_mask = problem.lm_obs_mask.to(g_lm.dtype)[..., None]
+        return d_pose, ba._backsub(Jp_pm, Jl_pm, problem.lm_obs, lm_mask, V_inv, g_lm, d_pose), rrn
+
+    return core
+
+
+def ridge_trial(problem, cam, gt_t) -> dict:
+    """Dense LM under each rule of RIDGES, in float32 and float64:
+    {rule: {dtype: {cost, iterations, accepted, ate}}}."""
+    runs = {"float32": (problem, cam), "float64": to_float64(problem, cam)}
+    solver = ba.BASolverConfig(max_iterations=ITERATIONS, schur_solver="dense", cg_iterations=CG_ITERATIONS)
+    out = {}
+    for rule, ridge_of in RIDGES.items():
+        out[rule] = {}
+        for dtype, (p, c) in runs.items():
+            with mock.patch.object(ba, "_dense_core", _dense_core_with_ridge(ridge_of)):
+                opt, info = ba.optimize(p, cam=c, solver=solver)
+            out[rule][dtype] = dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
+                                    ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t))
+    return out
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    args = p.parse_args(argv)
+    device = resolve_device(args.device)
+    problem, cam, gt_t = benchmark_problem(device)
+    print(json.dumps({"device": str(device), "first_step": first_step(problem, cam)}), flush=True)
+    print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
+                      "ridges": ridge_trial(problem, cam, gt_t)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -128,6 +128,25 @@ def build_ba_problem(
     Returns a BAProblem of tensors on `device`.
     """
     device = resolve_device(device)
+    return BAProblem.from_numpy(
+        build_ba_arrays(problem, left_cam_to_robot, min_track_length, max_landmarks, pad_to_multiple,
+                        consistency_threshold),
+        device=device,
+    )
+
+
+def build_ba_arrays(
+    problem: SLAMProblem,
+    left_cam_to_robot: Optional[np.ndarray] = None,
+    min_track_length: int = 2,
+    max_landmarks: Optional[int] = None,
+    pad_to_multiple: int = 128,
+    consistency_threshold: float = 0.75,
+    gather_tables: bool = True,
+) -> dict:
+    """build_ba_problem's arrays in numpy ({field: array}, index fields
+    int32, the JAX package's dtypes), before any upload; without the gather
+    tables when `gather_tables` is False (the scatter-form solves)."""
     uf = _UnionFind()
     for f in problem.vision_factors:
         for m in f.feature_matches:
@@ -324,10 +343,7 @@ def build_ba_problem(
             oq[k] = f.rotation
             oqm[k] = True
 
-    pose_obs, pose_obs_mask, lm_obs, lm_obs_mask = build_gather_tables(
-        op, ol, omask, Pc, Lc
-    )
-    return BAProblem.from_numpy(dict(
+    arrays = dict(
         poses_t=poses_t,
         poses_q=poses_q,
         pose_mask=pose_mask,
@@ -344,8 +360,8 @@ def build_ba_problem(
         odom_t=ot,
         odom_q=oq,
         odom_mask=oqm,
-        pose_obs=pose_obs,
-        pose_obs_mask=pose_obs_mask,
-        lm_obs=lm_obs,
-        lm_obs_mask=lm_obs_mask,
-    ), device=device)
+    )
+    if gather_tables:
+        tables = build_gather_tables(op, ol, omask, Pc, Lc)
+        arrays.update(zip(("pose_obs", "pose_obs_mask", "lm_obs", "lm_obs_mask"), tables))
+    return arrays

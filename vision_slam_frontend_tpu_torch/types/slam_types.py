@@ -166,8 +166,12 @@ class BAProblem:
     def from_numpy(cls, arrays, device="cpu") -> "BAProblem":
         """Tensors on `device` from numpy arrays (a BAProblem of arrays, such
         as the JAX package's, or a dict of them): index fields as int64,
-        masks as bool, the rest as float32."""
+        masks as bool, the rest as float32. A CUDA upload goes through pinned
+        memory and does not wait for the stream (a pageable one synchronizes
+        it)."""
         import torch
+
+        to_cuda = torch.device(device).type == "cuda"
 
         if not isinstance(arrays, dict):
             arrays = {f.name: getattr(arrays, f.name) for f in dataclasses.fields(arrays)}
@@ -181,7 +185,8 @@ class BAProblem:
                 a = a.astype(np.int64)
             elif a.dtype != bool:
                 a = a.astype(np.float32)
-            out[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
+            t = torch.from_numpy(np.array(a, order="C"))
+            out[f.name] = (t.pin_memory() if to_cuda else t).to(device, non_blocking=to_cuda)
         return cls(**out)
 
     def to_numpy(self) -> dict:
