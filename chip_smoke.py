@@ -22,12 +22,13 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               image, xs at every residue mod 4, ragged K). Exact equality
   4. parity   keyframe_step on CUDA vs on the CPU from the same state: the
               default ORB slice for 4 synthetic keyframes, then BRISK, FREAK,
-              AKAZE and the 3-level ORB pyramid for 2 each (640x480, K=512,
-              W=10): every int and bool field equal
+              AKAZE, the 3-level ORB pyramid and SIFT for 2 each (640x480,
+              K=512, W=10): every int and bool field equal
   5. main     each path driven once with the launch counts set to 0 just
               before and read just after: the port's CLI on synthetic:20
-              (ORB) and on synthetic:8 with --descriptor_family brisk, freak
-              and akaze; the ORB pyramid through Frontend on 8 frames; the
+              (ORB) and on synthetic:8 with --descriptor_family brisk, freak,
+              akaze and sift (SIFT: B1 and B2, no Hamming kernel); the ORB
+              pyramid through Frontend on 8 frames; the
               window-gather entry point (ops/kernel_variants) at the TPU
               probe's shapes. Each frontend run is checked against the CPU
               run of the same input; then one steady-state step per
@@ -87,8 +88,18 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               (d) slam_merge of two overlapping sessions made with the CLI,
               on the card and on the CPU: the same keys, shapes and dtypes,
               poses and landmarks within phase 7 (a)'s tolerances
-Then a JSON line of every kernel shape's numbers and the BA and local-BA
-numbers, the kernels JSON line and, last, the result line.
+  9. golden   (a) tests/test_golden_loop.py on the card for all five
+              families: its 215 frames (512x384, seed 5, odometry drift
+              0.02, texture noise 2) rendered once, Frontend (K=256, W=8)
+              then build_ba_problem and BA (15 iterations, trim 8), every
+              assertion of TestGoldenLoop against a copy of FAMILY_GOLDEN,
+              each family's readings beside its pins; (b) the CLI on the
+              card: --checkpoint_every then --resume, and --interrupt_after
+              (exit 130, partial problem and checkpoint) then --resume, each
+              against the uninterrupted run; (c) --validate for ORB and SIFT,
+              equal to phase 5's unvalidated runs
+Then a JSON line of every kernel shape's numbers and the BA, local-BA and
+golden-loop numbers, the kernels JSON line and, last, the result line.
 """
 
 from __future__ import annotations
@@ -219,7 +230,32 @@ CONFIGS = {
     "freak": {"descriptor_family": "freak"},
     "akaze": {"descriptor_family": "akaze"},
     "orb_pyramid": {"num_levels": 3},
+    "sift": {"descriptor_family": "sift"},
 }
+
+# Phase 9 (a): tests/test_golden_loop.py's fixture and its per-family pins
+# (FAMILY_GOLDEN, tests/test_golden_loop.py:42-63; chip_smoke imports no test
+# module, so the pins are copied here).
+GOLDEN_FRAMES = 215
+GOLDEN_RIG = dict(width=512, height=384, cx=256.0, cy=192.0, fx=420.0, fy=420.0)
+GOLDEN_SEQUENCE = dict(step=0.25, yaw_rate=2 * np.pi / 210, odom_drift=0.02, seed=5, texture_noise=2.0)
+GOLDEN_CONFIG = dict(max_features=256, frame_life=8, fast_threshold=12.0)
+FAMILY_GOLDEN = {
+    "orb": {"ate_ba_max": 0.26, "min_landmarks": 1830, "min_obs": 5800,
+            "min_feats_mean": 98, "min_feats_min": 42, "beats_odom": True},
+    "brisk": {"ate_ba_max": 0.23, "min_landmarks": 1800, "min_obs": 5400,
+              "min_feats_mean": 95, "min_feats_min": 43, "beats_odom": True},
+    "akaze": {"ate_ba_max": 0.53, "min_landmarks": 1650, "min_obs": 5000,
+              "min_feats_mean": 93, "min_feats_min": 46, "beats_odom": False},
+    "sift": {"ate_ba_max": 0.99, "min_landmarks": 1850, "min_obs": 5900,
+             "min_feats_mean": 98, "min_feats_min": 42, "beats_odom": False},
+    "freak": {"ate_ba_max": 0.26, "min_landmarks": 2000, "min_obs": 6400,
+              "min_feats_mean": 94, "min_feats_min": 38, "beats_odom": True},
+}
+# Phase 9 (b): the interrupted CLI run (tests/test_checkpoint.py's).
+CKPT_INPUT = "synthetic:12"
+CKPT_INTERRUPT_AFTER = 6
+CKPT_EVERY = 3
 
 
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
@@ -378,6 +414,7 @@ def kernel_cases(ck, frames, dev, sm_hz):
         ("BRISK K=512 C=5 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in brisk.SIGMAS]), 27, kps),
         ("FREAK K=512 C=7 ps=27 f32", torch.stack([gaussian_blur(imf, sigma=s) for s in freak.SIGMAS]), 27, kps),
         ("AKAZE K=512 C=3 ps=31 f32", torch.stack([L, Lx, Ly]), 31, kps),
+        ("SIFT K=512 C=1 ps=31 f32", gaussian_blur(imf)[None], 31, kps),
         (f"ORB pyramid level 457x343 K={len(level_kps)} C=1 ps=31 f16",
          gaussian_blur(level).to(torch.float16)[None], 31, level_kps),
     ):
@@ -544,10 +581,11 @@ def run_step(params, state, inputs, fid, config):
 
 def new_state(config, dev):
     from vision_slam_frontend_tpu_torch.frontend.keyframe import WindowState
-    from vision_slam_frontend_tpu_torch.ops.descriptors import get_family
+    from vision_slam_frontend_tpu_torch.ops.descriptors import descriptor_dtype, get_family
 
+    family = get_family(config.descriptor_family)
     return WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, dev,
-                              words=get_family(config.descriptor_family).words)
+                              words=family.words, desc_dtype=descriptor_dtype(family))
 
 
 def state_to(state, dev):
@@ -669,12 +707,15 @@ def phase_main(ck, frames, window_inputs, dev, tmp):
     check_launches("ORB CLI", launches, frontend_kernels, absent=("patch_windows",))
     per_path["orb"] = launches
     lines.append(f"ORB {MAIN_INPUT}: {summary}; launches {launches} over {n_kf} keyframes; vs CPU: {agreement}")
-    for fam in ("brisk", "freak", "akaze"):
+    for fam in ("brisk", "freak", "akaze", "sift"):
         summary, launches, n_kf, agreement = run_cli(
             ck, ["--input", FAMILY_INPUT, "--descriptor_family", fam], dev, tmp, fam)
         if fam == "akaze":  # AKAZE detects on the Hessian response: no FAST kernel
             check_launches("AKAZE CLI", launches, ("extract_patches", "hamming_top2"),
                            absent=("fast_scores_nms", "patch_windows"))
+        elif fam == "sift":  # SIFT matches by L2 distance: no Hamming kernel
+            check_launches("SIFT CLI", launches, ("fast_scores_nms", "extract_patches"),
+                           absent=("hamming_top2", "patch_windows"))
         else:
             check_launches(f"{fam} CLI", launches, frontend_kernels, absent=("patch_windows",))
         per_path[fam] = launches
@@ -1452,6 +1493,168 @@ def phase_local_ba(ck, dev, tmp, card: str):
     return {"parity": parity, "soak": soak, "solve": solve}, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the golden loop, checkpoints through the CLI, validate
+# ---------------------------------------------------------------------------
+
+
+def golden_frames():
+    """tests/test_golden_loop.py's rendered sequence, made once: (frames,
+    rig)."""
+    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig, generate_sequence
+
+    rig = SyntheticRig(**GOLDEN_RIG)
+    return list(generate_sequence(num_frames=GOLDEN_FRAMES, rig=rig, **GOLDEN_SEQUENCE)), rig
+
+
+def golden_loop(family: str, frames, rig, dev) -> dict:
+    """One family through TestGoldenLoop's run on `dev`: Frontend, tracks,
+    BA; returns the readings each of its assertions reads."""
+    from vision_slam_frontend_tpu_torch.backend import BASolverConfig, ate_rmse, build_ba_problem, optimize, rpe_rmse
+    from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
+    from vision_slam_frontend_tpu_torch.frontend import Frontend, FrontendConfig
+
+    config = FrontendConfig(calib=rig.calib(), descriptor_family=family, **GOLDEN_CONFIG)
+    frontend = Frontend(config, device=dev)
+    t0 = time.perf_counter()
+    gt_pos = []
+    for f in frames:
+        frontend.observe_odometry(f.odom_translation, f.odom_rotation, f.timestamp)
+        if frontend.observe_image(f.left, f.right, f.timestamp):
+            gt_pos.append(f.cam_pos.copy())
+    problem = frontend.get_slam_problem()
+    t1 = time.perf_counter()
+    gt_pos = np.stack(gt_pos)
+    ba = build_ba_problem(problem, left_cam_to_robot=np.asarray(config.left_cam_to_robot), min_track_length=2,
+                          device=dev)
+    opt, info = optimize(ba, cam=CameraParams.from_config(config, device=dev),
+                         solver=BASolverConfig(max_iterations=15, trim_threshold=8.0))
+    poses_odom = ba.poses_t.double().cpu().numpy()
+    poses_ba = opt.poses_t.double().cpu().numpy()
+    s = frontend.stats_summary()
+    return dict(
+        keyframes=frontend.get_num_poses(), features_mean=s["features_mean"], features_min=s["features_min"],
+        landmarks=int(ba.landmark_mask.sum()), observations=int(ba.obs_mask.sum()),
+        ate_odom=ate_rmse(poses_odom, gt_pos, align=False), ate_ba=ate_rmse(poses_ba, gt_pos, align=False),
+        rpe_odom=rpe_rmse(poses_odom, gt_pos), rpe_ba=rpe_rmse(poses_ba, gt_pos),
+        cost0=float(info["history"][0]), cost=float(info["cost"]), iterations=int(info["iterations"]),
+        frontend_s=t1 - t0, ba_s=time.perf_counter() - t1,
+    )
+
+
+def golden_failures(family: str, r: dict) -> list[str]:
+    """TestGoldenLoop's assertions on one family's readings, as the failed
+    ones' descriptions (tests/test_golden_loop.py's four tests)."""
+    g = FAMILY_GOLDEN[family]
+    checks = [
+        (GOLDEN_FRAMES - 5 <= r["keyframes"] <= GOLDEN_FRAMES - 1,
+         f"keyframes {r['keyframes']} outside [{GOLDEN_FRAMES - 5}, {GOLDEN_FRAMES - 1}]"),
+        (r["features_mean"] > g["min_feats_mean"], f"features_mean {r['features_mean']} <= {g['min_feats_mean']}"),
+        (r["features_min"] > g["min_feats_min"], f"features_min {r['features_min']} <= {g['min_feats_min']}"),
+        (r["landmarks"] > g["min_landmarks"], f"landmarks {r['landmarks']} <= {g['min_landmarks']}"),
+        (r["observations"] > g["min_obs"], f"observations {r['observations']} <= {g['min_obs']}"),
+        (r["observations"] / max(r["landmarks"], 1) > 2.5, "observations per landmark <= 2.5"),
+        (0.05 < r["ate_odom"] < 0.6, f"odometry ATE {r['ate_odom']} outside (0.05, 0.6)"),
+        (bool(np.isfinite(r["cost"])), "non-finite BA cost"),
+        (r["cost"] < 0.1 * r["cost0"], f"BA cost {r['cost']} not below a tenth of {r['cost0']}"),
+        (r["ate_ba"] < g["ate_ba_max"], f"BA ATE {r['ate_ba']} >= {g['ate_ba_max']}"),
+    ]
+    if g["beats_odom"]:
+        checks += [(r["ate_ba"] < r["ate_odom"], f"BA ATE {r['ate_ba']} not below odometry's {r['ate_odom']}"),
+                   (r["rpe_ba"] < r["rpe_odom"], f"BA RPE {r['rpe_ba']} not below odometry's {r['rpe_odom']}")]
+    return [msg for ok, msg in checks if not ok]
+
+
+def golden_line(family: str, r: dict) -> str:
+    g = FAMILY_GOLDEN[family]
+    return (f"{family}: {r['keyframes']} keyframes, features mean {r['features_mean']:.1f} (pin > "
+            f"{g['min_feats_mean']}) min {r['features_min']} (> {g['min_feats_min']}), landmarks {r['landmarks']} "
+            f"(> {g['min_landmarks']}), observations {r['observations']} (> {g['min_obs']}), ATE odometry "
+            f"{r['ate_odom']:.4f} BA {r['ate_ba']:.4f} (< {g['ate_ba_max']}"
+            + (f", and below odometry; RPE {r['rpe_ba']:.4f} < {r['rpe_odom']:.4f}" if g["beats_odom"] else "")
+            + f"), cost {r['cost0']:.1f} -> {r['cost']:.1f} in {r['iterations']} iterations; frontend "
+            f"{r['frontend_s']:.1f} s, BA {r['ba_s']:.1f} s")
+
+
+def phase_golden(ck, dev, card: str) -> tuple[dict, dict]:
+    """(a): every family through the golden loop on the card. Returns
+    (readings per family, launch counts of the path)."""
+    t0 = time.perf_counter()
+    frames, rig = golden_frames()
+    say("9 golden", f"(a) rendered the {GOLDEN_FRAMES} frames of tests/test_golden_loop.py in "
+        f"{time.perf_counter() - t0:.1f} s")
+    readings, failed = {}, []
+    ck.reset_launch_counts()
+    for family in FAMILY_GOLDEN:
+        r = readings[family] = golden_loop(family, frames, rig, dev)
+        failures = golden_failures(family, r)
+        failed += [f"{family}: {m}" for m in failures]
+        say("9 golden", f"(a) [{card}] " + golden_line(family, r)
+            + ("; every pin met" if not failures else "; MISSED: " + "; ".join(failures)))
+    launches = dict(ck.LAUNCHES)
+    check(not failed, "golden loop pins missed: " + "; ".join(failed))
+    check_launches("golden loop", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
+                   absent=("patch_windows",))
+    return readings, launches
+
+
+def same_problem(what: str, a_npz: str, b_npz: str) -> str:
+    """Two runs on one device: the same keys, dtypes and values."""
+    a, b = np.load(a_npz), np.load(b_npz)
+    check(sorted(a.files) == sorted(b.files), f"{what}: npz keys differ")
+    for k in b.files:
+        check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), f"{what}: npz {k} differs")
+    return f"{len(a['nodes_id'])} nodes, {len(a['feat_node'])} features, {len(a['vfm_factor'])} matches equal"
+
+
+def phase_checkpoint_cli(ck, dev, tmp) -> tuple[str, dict]:
+    """(b): the CLI on the card with --checkpoint_every then --resume, and
+    with --interrupt_after then --resume, against the uninterrupted run.
+    Returns (line, launch counts)."""
+    run = lambda *argv: run_cli_quiet(["--input", CKPT_INPUT, "--device", str(dev), *argv])
+    out = {k: os.path.join(tmp, f"ckpt_{k}.npz") for k in ("full", "every", "resumed_every", "cut", "resumed_cut")}
+    ck.reset_launch_counts()
+    rc, _ = run("--output", out["full"])
+    check(rc == 0, f"CLI {CKPT_INPUT}: exit code {rc}")
+    rc, printed = run("--output", out["every"], "--checkpoint_every", str(CKPT_EVERY), "-v", "1")
+    check(rc == 0 and f"[checkpoint] {CKPT_EVERY} poses" in printed, f"--checkpoint_every: exit code {rc}")
+    rc, printed = run("--output", out["resumed_every"], "--resume", out["every"] + ".ckpt.npz")
+    check(rc == 0 and "Resumed from" in printed, f"--resume after --checkpoint_every: exit code {rc}")
+    every = same_problem("--checkpoint_every then --resume", out["resumed_every"], out["full"])
+    rc, printed = run("--output", out["cut"], "--interrupt_after", str(CKPT_INTERRUPT_AFTER))
+    check(rc == 130 and "SIGINT" in printed, f"--interrupt_after: exit code {rc} (130 expected)")
+    check(os.path.exists(out["cut"]) and os.path.exists(out["cut"] + ".ckpt.npz"),
+          "--interrupt_after left no partial problem or no checkpoint")
+    n_cut = len(np.load(out["cut"])["nodes_id"])
+    rc, _ = run("--output", out["resumed_cut"], "--resume", out["cut"] + ".ckpt.npz")
+    check(rc == 0, f"--resume after the interrupt: exit code {rc}")
+    cut = same_problem("--interrupt_after then --resume", out["resumed_cut"], out["full"])
+    launches = dict(ck.LAUNCHES)
+    check_launches("checkpoint CLI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
+                   absent=("patch_windows",))
+    return (f"(b) CLI {CKPT_INPUT} on the card: --checkpoint_every {CKPT_EVERY} then --resume from its last "
+            f"checkpoint: {every} with the uninterrupted run; --interrupt_after {CKPT_INTERRUPT_AFTER}: exit 130 "
+            f"with {n_cut} nodes and a checkpoint, then --resume: {cut}; launches {launches}"), launches
+
+
+def phase_validate(ck, dev, tmp) -> tuple[str, dict]:
+    """(c): --validate for ORB and SIFT on phase 5's inputs: no violation,
+    and the problem of the unvalidated runs of phase 5."""
+    parts = []
+    ck.reset_launch_counts()
+    for fam, inp in (("orb", MAIN_INPUT), ("sift", FAMILY_INPUT)):
+        out = os.path.join(tmp, f"{fam}_validated.npz")
+        rc, _ = run_cli_quiet(["--input", inp, "--descriptor_family", fam, "--validate", "--output", out,
+                               "--device", str(dev)])
+        check(rc == 0, f"CLI --validate {fam}: exit code {rc}")
+        parts.append(f"{fam} {inp}: " + same_problem(f"--validate {fam}", out, os.path.join(tmp, f"{fam}_gpu.npz")))
+    launches = dict(ck.LAUNCHES)
+    check_launches("validate CLI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
+                   absent=("patch_windows",))
+    return "(c) --validate on the card, every keyframe checked, none failed: " + "; ".join(parts) + \
+        f" with phase 5's unvalidated runs; launches {launches}", launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1541,15 +1744,23 @@ def main() -> int:
     ba_numbers, per_path["ba"] = phase_ba(ck, dev, os.path.join(tmp_dir.name, "orb_gpu.npz"), tmp_dir.name, smi)
     say("7 ba", f"whole run so far {time.perf_counter() - t_start:.1f} s")
     lba_numbers, per_path["local_ba"] = phase_local_ba(ck, dev, tmp_dir.name, smi)
+    say("8 local_ba", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    golden, per_path["golden_loop"] = phase_golden(ck, dev, smi)
+    line, per_path["checkpoint_cli"] = phase_checkpoint_cli(ck, dev, tmp_dir.name)
+    say("9 golden", line)
+    line, per_path["validate_cli"] = phase_validate(ck, dev, tmp_dir.name)
+    say("9 golden", line)
     tmp_dir.cleanup()
-    say("8 local_ba", f"whole run {time.perf_counter() - t_start:.1f} s")
+    say("9 golden", f"whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
     print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
                       "steps": {k: dict(zip(("ms", "enqueue_ms", "keyframes", "launches", "device_ms"), v))
                                 for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
                       "launch_floor_ms": floor_ms,
-                      "launches_per_path": per_path, "ba": ba_numbers, "local_ba": lba_numbers}), flush=True)
+                      "launches_per_path": per_path, "ba": ba_numbers, "local_ba": lba_numbers,
+                      "golden_loop": golden}), flush=True)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])

@@ -242,6 +242,25 @@ def test_schur_step_equals_the_jax_packages(step_problem, solver, lam):
     assert float(np.abs(np.asarray(theirs[0])[0]).max()) == float(ours[0][0].abs().max()) == 0.0  # the gauge
 
 
+def test_dense_plateau_floor_copy_is_the_solvers_terms(step_problem):
+    """backend/dense_plateau's copy of the Schur terms gives the solver's
+    dense step bit for bit at the solver's landmark floor (1e-5) and another
+    step with no floor."""
+    from unittest import mock
+
+    from vision_slam_frontend_tpu_torch.backend import dense_plateau
+
+    _, _, _, p, pm_t, lin_t = step_problem
+    ref = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
+    steps = {}
+    for floor in (1e-5, 0.0):
+        with mock.patch.object(ba, "_schur_terms", dense_plateau._schur_terms_with_floor(floor)):
+            steps[floor] = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
+    assert torch.equal(steps[1e-5][0], ref[0]) and torch.equal(steps[1e-5][1], ref[1])
+    assert not torch.equal(steps[0.0][0], ref[0])
+    assert set(dense_plateau.FLOORS.values()) == {0.0, 1e-6, 1e-5, 1e-4}
+
+
 def test_scatter_pcg_equals_the_jax_packages():
     """Without gather tables: the flat linearization, and the scatter-sum PCG
     step at lambda 1 (24 CG iterations; measured 4.6e-5 / 9.2e-5 of the

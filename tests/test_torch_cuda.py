@@ -1,7 +1,7 @@
 """The port on a CUDA GPU: each kernel against its plain PyTorch version at
 the main paths' shapes, the keyframe step and Frontend on the card against
-the CPU, for every descriptor family and the ORB pyramid, and the BA
-backend (a failed Cholesky, bit-equal reruns, the card against the CPU, the
+the CPU, for every descriptor family and the ORB pyramid, the L2 kNN,
+frontend checkpoints and validate mode, and the BA backend (a failed Cholesky, bit-equal reruns, the card against the CPU, the
 CUDA default refused without a card).
 
 The tests marked `cuda` need the card and skip where there is none; the BA
@@ -29,7 +29,7 @@ from vision_slam_frontend_tpu_torch.ops import akaze, brisk, freak  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import cuda_kernels as ck  # noqa: E402
 import torch_edge_cases as edge_cases  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops import kernel_variants as kv  # noqa: E402
-from vision_slam_frontend_tpu_torch.ops.descriptors import get_family  # noqa: E402
+from vision_slam_frontend_tpu_torch.ops.descriptors import descriptor_dtype, get_family  # noqa: E402
 from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear  # noqa: E402
 from vision_slam_frontend_tpu_torch.utils import cuda_timing, np_geom  # noqa: E402
 
@@ -204,15 +204,17 @@ def test_window_edge_cases_match_plain_on_the_card(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("overrides", [{}, {"descriptor_family": "brisk"}, {"descriptor_family": "freak"},
-                                       {"descriptor_family": "akaze"}, {"num_levels": 3}],
-                         ids=["orb", "brisk", "freak", "akaze", "orb_pyramid"])
+                                       {"descriptor_family": "akaze"}, {"num_levels": 3},
+                                       {"descriptor_family": "sift"}],
+                         ids=["orb", "brisk", "freak", "akaze", "orb_pyramid", "sift"])
 def test_keyframe_step_cuda_matches_cpu(cuda, frames, overrides):
     """From the same state, every int and bool field of the step's result
     and new state is equal on the card and on the CPU."""
     config = _config(**overrides)
     params = {d: tkf.StepParams.from_config(config, d) for d in (CPU, cuda)}
+    family = get_family(config.descriptor_family)
     state = tkf.WindowState.create(config.frame_life, config.max_features, config.stereo_threshold_init, CPU,
-                                   words=get_family(config.descriptor_family).words)
+                                   words=family.words, desc_dtype=descriptor_dtype(family))
     q0_inv = np_geom.quat_inverse(np_geom.quat_normalize(frames[0].odom_rotation))
     for k in range(1, NUM_FRAMES):
         f = frames[k]
@@ -254,6 +256,100 @@ def test_frontend_on_the_card_launches_each_kernel_twice_per_keyframe(cuda, fram
     assert fe.get_slam_problem().summary() == ref.get_slam_problem().summary()
     for a, b in zip(fe.node_track_ids, ref.node_track_ids):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_l2_knn_at_the_window_shape_card_matches_cpu(cuda):
+    """The sift window match's kNN(2) (W*K = 5120 queries, 512 trains, 128
+    floats; float64 products rounded once): the same indices, and distances
+    within one float32 rounding, on the card and on the CPU."""
+    from vision_slam_frontend_tpu_torch.ops.hamming import _l2_knn2
+
+    rng = np.random.default_rng(7)
+    t = np.abs(rng.normal(size=(512, 128))).astype(np.float32)
+    t /= np.linalg.norm(t, axis=1, keepdims=True)
+    q = t[rng.integers(0, 512, 5120)] + rng.normal(0, 0.02, (5120, 128)).astype(np.float32)
+    q = (np.abs(q) / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+    v = rng.random(512) > 0.1
+    out = {d: _l2_knn2(*(torch.from_numpy(a).to(d) for a in (q, t, v))) for d in (CPU, cuda)}
+    assert torch.equal(out[cuda][0].cpu(), out[CPU][0])
+    for i in (1, 2):
+        torch.testing.assert_close(out[cuda][i].cpu(), out[CPU][i], rtol=1.2e-7, atol=0)
+
+
+@pytest.mark.cuda
+def test_sift_path_ignores_tf32(cuda, frames):
+    """SIFT's products (the histogram contraction, the moments, the L2 cross
+    term) are float64, which no TF32 setting reaches: with TF32 allowed for
+    matmuls and cuDNN the extractor and the L2 kNN give the same bits."""
+    from vision_slam_frontend_tpu_torch.ops.hamming import _l2_knn2
+    from vision_slam_frontend_tpu_torch.ops.sift import detect_and_describe_sift
+
+    img = torch.from_numpy(_u8(frames[1].left)).to(cuda)
+    out = {}
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+            kps, scores, desc, valid = detect_and_describe_sift(img, threshold=12.0)
+            out[tf32] = (kps, scores, desc, valid, *_l2_knn2(desc, desc.flip(0), valid))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    for a, b in zip(out[False], out[True]):
+        assert torch.equal(a, b)
+    assert int(out[False][3].sum()) > 100
+
+
+def _problem_arrays(fe):
+    from vision_slam_frontend_tpu_torch.io.serialize import problem_to_arrays
+
+    return problem_to_arrays(fe.get_slam_problem(), fe.node_track_ids)
+
+
+def _assert_same_problem(a, b):
+    """Integer arrays equal, pixels within 1e-4 px, poses within 1e-6, points
+    within 1e-3 (tests/test_checkpoint.py's tolerances)."""
+    assert sorted(a) == sorted(b)
+    for k in b:
+        assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, k
+        if a[k].dtype.kind in "iub":
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_allclose(a["feat_pixel"], b["feat_pixel"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(a["nodes_loc"], b["nodes_loc"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(a["feat_point3d"], b["feat_point3d"], rtol=0, atol=1e-3)
+
+
+def _feed(fe, frames, after=-float("inf")):
+    for f in frames:
+        if f.timestamp > after:
+            fe.observe_odometry(f.odom_translation, f.odom_rotation, f.timestamp)
+            fe.observe_image(f.left, f.right, f.timestamp)
+    return fe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["orb", "sift"])
+def test_checkpoint_saved_on_the_card_resumes_on_the_cpu(cuda, family, tmp_path):
+    frames = list(generate_sequence(num_frames=8, rig=SyntheticRig()))
+    config = _config(descriptor_family=family, max_features=256, frame_life=4)
+    card = _feed(Frontend(config, device=cuda), frames[:4])
+    ckpt = str(tmp_path / "card.ckpt.npz")
+    card.save_checkpoint(ckpt)
+    _feed(card, frames[4:])
+    cpu = Frontend(config, device=CPU)
+    _feed(cpu, frames, after=cpu.load_checkpoint(ckpt))
+    assert cpu.get_num_poses() == card.get_num_poses() == 7
+    _assert_same_problem(_problem_arrays(cpu), _problem_arrays(card))
+
+
+@pytest.mark.cuda
+def test_validate_on_the_card(cuda, frames):
+    """validate=True on the card checks every keyframe, raises nothing, and
+    gives the unvalidated card run's problem."""
+    checked = _feed(Frontend(_config(validate=True), device=cuda), frames)
+    plain = _feed(Frontend(_config(), device=cuda), frames)
+    assert checked.get_num_poses() == NUM_FRAMES - 1
+    _assert_same_problem(_problem_arrays(checked), _problem_arrays(plain))
 
 
 # --- the BA backend -----------------------------------------------------------

@@ -94,11 +94,12 @@ def _check_extractor_outputs(out, ref):
 
 
 def test_registry_lists_the_ported_families():
-    assert registered_families() == ["akaze", "brisk", "freak", "orb"]
+    assert registered_families() == ["akaze", "brisk", "freak", "orb", "sift"]
     for name in ("brisk", "freak", "akaze"):
         assert get_family(name).words == 16 and get_family(name).distance == "hamming"
-    with pytest.raises(ValueError, match="registered: \\['akaze', 'brisk', 'freak', 'orb'\\]"):
-        get_family("sift")
+    assert (get_family("sift").words, get_family("sift").distance) == (128, "l2")
+    with pytest.raises(ValueError, match="registered: \\['akaze', 'brisk', 'freak', 'orb', 'sift'\\]"):
+        get_family("surf")
 
 
 @pytest.mark.parametrize("family", sorted(FAST_FAMILIES))

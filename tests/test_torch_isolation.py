@@ -64,7 +64,8 @@ def test_port_and_chip_smoke_import_without_jax():
             "vision_slam_frontend_tpu_torch.backend.metrics", "vision_slam_frontend_tpu_torch.utils.checks",
             "vision_slam_frontend_tpu_torch.utils.device", "vision_slam_frontend_tpu_torch.backend.local_ba",
             "vision_slam_frontend_tpu_torch.backend.merge", "vision_slam_frontend_tpu_torch.cli.slam_merge",
-            "vision_slam_frontend_tpu_torch.backend.dense_plateau"} <= set(modules)
+            "vision_slam_frontend_tpu_torch.backend.dense_plateau", "vision_slam_frontend_tpu_torch.ops.sift",
+            "vision_slam_frontend_tpu_torch.frontend.frontend"} <= set(modules)
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, *modules, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, cwd=ROOT, timeout=300,

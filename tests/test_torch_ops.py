@@ -187,10 +187,13 @@ def test_quantize_angle_and_tables():
 def test_descriptor_registry():
     fam = tdesc.get_family("ORB")
     assert (fam.name, fam.words, fam.distance) == ("orb", 8, "hamming")
-    assert tdesc.registered_families() == ["akaze", "brisk", "freak", "orb"]
+    assert tdesc.registered_families() == ["akaze", "brisk", "freak", "orb", "sift"]
     assert tdesc.get_family("BRISK").words == 16
-    with pytest.raises(ValueError, match="unknown descriptor family 'sift'"):
-        tdesc.get_family("sift")
+    assert tdesc.get_family("SIFT").distance == "l2"
+    with pytest.raises(ValueError, match="unknown descriptor family 'surf'"):
+        tdesc.get_family("surf")
+    with pytest.raises(ValueError, match="unknown distance metric"):
+        tdesc.register_family("cosine_family", lambda *a: None, distance="cosine")
 
 
 # ---------------------------------------------------------------------------
@@ -368,12 +371,12 @@ def test_config_derived_matrices(calib):
 
 def test_config_rejects_options_not_ported():
     assert FrontendConfig(num_levels=3, descriptor_family="akaze").num_levels == 3  # ported now
+    assert FrontendConfig(validate=True).validate  # ported now
+    assert FrontendConfig(descriptor_family="sift").descriptor_family == "sift"  # ported now
     with pytest.raises(NotImplementedError, match="debug_images"):
         FrontendConfig(debug_images=True)
-    with pytest.raises(NotImplementedError, match="validate"):
-        FrontendConfig(validate=True)
     with pytest.raises(ValueError, match="unknown descriptor family"):
-        FrontendConfig(descriptor_family="sift")
+        FrontendConfig(descriptor_family="surf")
 
 
 def test_config_load_yaml(tmp_path):

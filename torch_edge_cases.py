@@ -138,7 +138,8 @@ def _patch_keypoints(rng, K: int, H: int, W: int) -> np.ndarray:
 def patch_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int]]:
     """(label, planes (C, H, W) f16 or f32, keypoints (K, 2) f32, ps, offset)
     for the patch gather: widths odd or not a multiple of 4 (457, 71, 33),
-    K from 1 to 513, C from 1 to 7, ps from 1 to 33 and equal to H or W, the
+    K from 1 to 513, C from 1 to 7, ps from 1 to 33 and equal to H or W,
+    SIFT's float32 single plane at 31x31 (640x480 and a level), the
     first 14 keypoints of each case at the edges, outside and on .5. With
     `offset` 1 the planes are handed over as a view 1 element into its
     storage (`at_offset`)."""
@@ -158,6 +159,8 @@ def patch_cases() -> list[tuple[str, np.ndarray, np.ndarray, int, int]]:
         (1, 31, 33, np.float32, 7, 31, 0),
         (3, 40, 71, np.float16, 9, 27, 1),
         (7, 343, 457, np.float32, 3, 32, 1),
+        (1, 480, 640, np.float32, 512, 31, 0),  # SIFT: one float32 plane, 31x31
+        (1, 343, 457, np.float32, 170, 31, 1),  # SIFT on a pyramid level
     )
     cases = []
     for C, H, W, dtype, K, ps, offset in shapes:

@@ -7,9 +7,12 @@ Two measurements, on the device the caller names:
 - `ridge_trial`: dense LM under each rule of RIDGES for the equilibrated
   ridge (ba._dense_solve_core's fixed 1e-3), in float32 and float64. The
   rules are tried on a copy of the solve; the solver itself keeps 1e-3.
+- `floor_trial`: dense LM under each of FLOORS for the landmarks' damping
+  floor (ba._schur_terms' fixed 1e-5 of each landmark block's trace), in
+  float32 and float64, on a copy of those terms; the solver keeps 1e-5.
 
 Run: python -m vision_slam_frontend_tpu_torch.backend.dense_plateau
-[--device cuda] (one JSON line per measurement; about 30 s on an H100).
+[--device cuda] (one JSON line per measurement; about a minute on an H100).
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ RIDGES = {
     "max(10 lambda, 1e-6)": lambda lam: max(10.0 * lam, 1e-6),
     "max(100 lambda, 1e-6)": lambda lam: max(100.0 * lam, 1e-6),
 }
+
+# The landmarks' damping floor, as a fraction of each block's trace / 3.
+FLOORS = {"0": 0.0, "1e-6": 1e-6, "1e-5 (the solver's)": 1e-5, "1e-4": 1e-4}
 
 
 def benchmark_problem(device):
@@ -110,20 +116,68 @@ def _dense_core_with_ridge(ridge_of):
     return core
 
 
-def ridge_trial(problem, cam, gt_t) -> dict:
-    """Dense LM under each rule of RIDGES, in float32 and float64:
-    {rule: {dtype: {cost, iterations, accepted, ate}}}."""
+def _schur_terms_with_floor(floor: float):
+    """A copy of ba._schur_terms with the landmarks' damping floor at
+    `floor` of the trace / 3 (the solver's 1e-5) where `trace_floor` is set."""
+
+    def terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor):
+        P = problem.num_poses
+        L = problem.num_landmarks
+        pm_mask = pm["mask"].to(r_pm.dtype)[..., None]
+        lm_tbl = problem.lm_obs
+        lm_mask = problem.lm_obs_mask.to(r_pm.dtype)[..., None]
+        ol_pm = pm["landmark"]
+        Mp = ol_pm.shape[1]
+        VV = torch.einsum("pmij,pmik->pmjk", Jl_pm, Jl_pm).reshape(P, Mp, 9)
+        V = ba._lm_reduce(VV, lm_tbl, lm_mask).reshape(L, 3, 3)
+        damping = lm_damping
+        if trace_floor:
+            trV = V[..., 0, 0] + V[..., 1, 1] + V[..., 2, 2]
+            damping = (floor * trV / 3.0).clamp(min=lm_damping)[..., None, None]
+        V = V + damping * ba._eye(3, V)[None]
+        V_inv = ba._sym3_inv(V)
+        free = ba._free_mask(problem, fix_first, r_pm.dtype)
+        g_odom, U_odom = ba._odom_terms(problem, Ji, Jj, ro, P)
+        g_pose = -torch.einsum("pmij,pmi->pj", Jp_pm, r_pm) + g_odom
+        g_lm = -ba._lm_reduce(torch.einsum("pmij,pmi->pmj", Jl_pm, r_pm), lm_tbl, lm_mask)
+        s = torch.einsum("ljk,lk->lj", V_inv, g_lm)
+        s_pm = s[ol_pm] * pm_mask
+        Jls = torch.einsum("pmij,pmj->pmi", Jl_pm, s_pm)
+        b = (g_pose - torch.einsum("pmij,pmi->pj", Jp_pm, Jls)) * free[:, None]
+        U_diag = torch.einsum("pmij,pmik->pjk", Jp_pm, Jp_pm) + U_odom
+        U_diag = U_diag + lm_damping * ba._eye(6, U_diag)[None]
+        return dict(V=V, V_inv=V_inv, free=free, g_lm=g_lm, b=b, U_diag=U_diag, pm_mask=pm_mask,
+                    lm_tbl=lm_tbl, lm_mask=lm_mask, ol_pm=ol_pm)
+
+    return terms
+
+
+def _dense_lm(problem, cam, gt_t, patch: tuple[str, object]) -> dict:
+    """Dense LM at the benchmark's settings with `ba.<patch[0]>` replaced,
+    in float32 and float64: {dtype: {cost, iterations, accepted, ate}}."""
     runs = {"float32": (problem, cam), "float64": to_float64(problem, cam)}
     solver = ba.BASolverConfig(max_iterations=ITERATIONS, schur_solver="dense", cg_iterations=CG_ITERATIONS)
     out = {}
-    for rule, ridge_of in RIDGES.items():
-        out[rule] = {}
-        for dtype, (p, c) in runs.items():
-            with mock.patch.object(ba, "_dense_core", _dense_core_with_ridge(ridge_of)):
-                opt, info = ba.optimize(p, cam=c, solver=solver)
-            out[rule][dtype] = dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
-                                    ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t))
+    for dtype, (p, c) in runs.items():
+        with mock.patch.object(ba, *patch):
+            opt, info = ba.optimize(p, cam=c, solver=solver)
+        out[dtype] = dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
+                          ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t))
     return out
+
+
+def ridge_trial(problem, cam, gt_t) -> dict:
+    """Dense LM under each rule of RIDGES, in float32 and float64:
+    {rule: {dtype: {cost, iterations, accepted, ate}}}."""
+    return {rule: _dense_lm(problem, cam, gt_t, ("_dense_core", _dense_core_with_ridge(ridge_of)))
+            for rule, ridge_of in RIDGES.items()}
+
+
+def floor_trial(problem, cam, gt_t) -> dict:
+    """Dense LM under each landmark floor of FLOORS, in float32 and
+    float64: {floor: {dtype: {cost, iterations, accepted, ate}}}."""
+    return {name: _dense_lm(problem, cam, gt_t, ("_schur_terms", _schur_terms_with_floor(floor)))
+            for name, floor in FLOORS.items()}
 
 
 def main(argv=None) -> int:
@@ -135,6 +189,8 @@ def main(argv=None) -> int:
     print(json.dumps({"device": str(device), "first_step": first_step(problem, cam)}), flush=True)
     print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
                       "ridges": ridge_trial(problem, cam, gt_t)}), flush=True)
+    print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
+                      "landmark_floors": floor_trial(problem, cam, gt_t)}), flush=True)
     return 0
 
 

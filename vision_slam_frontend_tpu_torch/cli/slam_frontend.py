@@ -3,7 +3,9 @@
 Usage:
   python -m vision_slam_frontend_tpu_torch.cli.slam_frontend \
       --input synthetic:20 --output /tmp/problem.npz [--device cuda] \
-      [--descriptor_family orb|brisk|freak|akaze] [--local_ba 8] [-v 2]
+      [--descriptor_family orb|brisk|freak|akaze|sift] [--local_ba 8] \
+      [--checkpoint_every N] [--resume CKPT] [--interrupt_after N] \
+      [--validate] [-v 2]
 
 Only the synthetic input (`synthetic[:N[:step]]`) is ported; bag, KITTI and
 EuRoC inputs are not yet. The device defaults to `cuda`, where the step runs
@@ -13,12 +15,21 @@ pipelined one keyframe deep (backend/local_ba.py); `-v 2` logs each applied
 solve. The run ends with a frame-latency line (percentiles over every stereo
 frame's host-loop time, peak RSS sampled after each frame, and peak device
 memory on a GPU).
+
+`--checkpoint_every N` writes a resumable snapshot to `<output>.ckpt.npz`
+every N keyframes (after applying any in-flight local-BA solve); `--resume`
+restores one and skips the events at or before its last odometry time. A
+SIGINT stops the run after the current frame and writes the partial problem
+and a checkpoint, then exits with 130; a second SIGINT aborts.
+`--interrupt_after N` raises that SIGINT after N stereo frames. `--validate`
+checks every keyframe's outputs (utils/checks.py) as it is fetched.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import sys
 import time
 
@@ -99,13 +110,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame_life", type=int, default=None, help="override temporal window W")
     p.add_argument(
         "--descriptor_family", default=None,
-        help="descriptor family from the registry (orb, brisk, freak, akaze): the "
+        help="descriptor family from the registry (orb, brisk, freak, akaze, sift): the "
         "reference's -descriptor_extract_type switch",
     )
     p.add_argument(
         "--local_ba", type=int, default=0,
         help="run windowed local bundle adjustment over the last N keyframes "
         "after each new keyframe (0 = off)",
+    )
+    p.add_argument(
+        "--checkpoint_every", type=int, default=0,
+        help="write a resumable snapshot every N keyframes (to <output>.ckpt.npz)",
+    )
+    p.add_argument("--resume", default=None, help="resume from a checkpoint file")
+    p.add_argument(
+        "--validate", action="store_true",
+        help="check every keyframe's invariants (NaN, bounds, indices)",
+    )
+    p.add_argument(
+        "--interrupt_after", type=int, default=0, metavar="N",
+        help="raise SIGINT after N stereo frames (a deterministic test of the "
+        "graceful-interrupt path; 0 = off)",
     )
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("-v", "--verbosity", type=int, default=0)
@@ -123,7 +148,6 @@ def main(argv=None) -> int:
 
     from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
     from vision_slam_frontend_tpu_torch.frontend import Frontend, FrontendConfig
-    from vision_slam_frontend_tpu_torch.io.serialize import save_problem
 
     overrides = {}
     if args.max_features is not None:
@@ -132,14 +156,54 @@ def main(argv=None) -> int:
         overrides["frame_life"] = args.frame_life
     if args.descriptor_family is not None:
         overrides["descriptor_family"] = args.descriptor_family
+    if args.validate:
+        overrides["validate"] = True
     config = FrontendConfig(calib=SyntheticRig().calib(), fast_threshold=12.0, **overrides)
     frontend = Frontend(config, device=device)
     frontend.verbosity = args.verbosity
+    resume_t = -float("inf")
+    if args.resume:
+        resume_t = frontend.load_checkpoint(args.resume)
+        print(
+            f"Resumed from {args.resume}: {frontend.get_num_poses()} poses, "
+            f"skipping events at t <= {resume_t:.6f}"
+        )
+    ckpt_path = args.output + ".ckpt.npz"
+
+    # SIGINT stops the run after the current frame; the partial problem and
+    # a checkpoint are written below. A second SIGINT aborts.
+    interrupted = False
+
+    def on_sigint(signum, frame):
+        nonlocal interrupted
+        if interrupted:
+            signal.signal(signal.SIGINT, prev_sigint or signal.SIG_DFL)
+            raise KeyboardInterrupt
+        interrupted = True
+        print("\n[signal] SIGINT: stopping after the current frame; writing the partial problem and a "
+              "checkpoint (SIGINT again to abort)")
+
+    try:
+        prev_sigint = signal.signal(signal.SIGINT, on_sigint)
+        installed = True
+    except ValueError:  # not the main thread: no handler
+        prev_sigint, installed = None, False
+    try:
+        return _run(args, device, config, frontend, resume_t, ckpt_path, lambda: interrupted)
+    finally:
+        if installed:
+            signal.signal(signal.SIGINT, prev_sigint or signal.SIG_DFL)
+
+
+def _run(args, device, config, frontend, resume_t: float, ckpt_path: str, interrupted) -> int:
+    """The CLI's event loop and epilogue; `interrupted()` reads the SIGINT
+    flag. Returns the exit code (130 after an interrupt)."""
+    from vision_slam_frontend_tpu_torch.io.serialize import save_problem
 
     print(f"Processing {args.input} on {device}")
     t_start = time.perf_counter()
     frames_seen = 0
-    n_poses = 0
+    n_poses = last_ckpt_poses = frontend.get_num_poses()
     frame_lat = []  # each stereo frame's host-loop time (s)
     peak_rss_mb = _rss_mb()
     lba_ms = []  # each keyframe's local-BA host time: apply, window build, dispatch
@@ -147,12 +211,18 @@ def main(argv=None) -> int:
     local_ba = LocalBAState() if args.local_ba > 0 else None  # this Frontend's in-flight solve
     ba_live = None  # the SLAMProblem whose nodes the in-flight solve updates
     for kind, t, payload in iter_synthetic(args.input):
+        if interrupted():
+            break
+        if t <= resume_t:
+            continue
         if kind == "odometry":
             frontend.observe_odometry(*payload, t)
             continue
         frames_seen += 1
         t_frame = time.perf_counter()
         added = frontend.observe_image(*payload, t)
+        if args.interrupt_after > 0 and frames_seen >= args.interrupt_after:
+            signal.raise_signal(signal.SIGINT)
         # Keyframes counted here: get_num_poses would flush the frontend's
         # one-deep result pipeline every frame.
         if added:
@@ -171,12 +241,23 @@ def main(argv=None) -> int:
             lba_ms.append((time.perf_counter() - t_lba) * 1e3)
             if steady_from is None:
                 steady_from = (time.perf_counter(), frames_seen, n_poses)
+        if args.checkpoint_every > 0 and n_poses > last_ckpt_poses and n_poses % args.checkpoint_every == 0:
+            if local_ba is not None:  # the checkpoint holds the refined poses
+                _apply_local_ba(frontend, local_ba, ba_live, args.verbosity)
+            frontend.save_checkpoint(ckpt_path)
+            last_ckpt_poses = n_poses
+            if args.verbosity > 0:
+                print(f"[checkpoint] {n_poses} poses -> {ckpt_path}")
         frame_lat.append(time.perf_counter() - t_frame)
         peak_rss_mb = max(peak_rss_mb, _rss_mb())
         if args.max_poses > 0 and n_poses >= args.max_poses:
             break
     if local_ba is not None:
         _apply_local_ba(frontend, local_ba, ba_live, args.verbosity)
+    if interrupted():
+        frontend.save_checkpoint(ckpt_path)
+        print(f"[signal] interrupted at {n_poses} keyframes: checkpoint -> {ckpt_path} "
+              f"(resume with --resume {ckpt_path})")
     problem = frontend.get_slam_problem()  # waits for the last keyframe
     t_end = time.perf_counter()
     elapsed = t_end - t_start
@@ -203,7 +284,7 @@ def main(argv=None) -> int:
         )
     if args.verbosity > 0 and frontend.stats_summary():
         print(f"[stats] {frontend.stats_summary()}")
-    return 0
+    return 130 if interrupted() else 0  # 130: interrupted, by convention
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 Same fields, defaults and derived matrices as the JAX package's
 FrontendConfig, computed with numpy, so the port runs where JAX is not
-installed. Options whose code is not ported yet (debug images, the
-validator) raise NotImplementedError.
+installed. Debug images are not ported yet: asking for them raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ class FrontendConfig:
     stereo_threshold_init: float = 10000.0      # adaptive epipolar gate seed
     stereo_threshold_padding: float = 2.0       # running-average padding
     debug_images: bool = False                  # not ported yet
-    validate: bool = False                      # not ported yet
+    validate: bool = False                      # check every keyframe (synchronous fetch)
     mutual_check: bool = True                   # one-to-one temporal matching
     guided_match_radius: float = 40.0           # px; <= 0 disables the guided gate
 
@@ -91,12 +91,8 @@ class FrontendConfig:
 
     def __post_init__(self):
         get_family(self.descriptor_family)
-        for name, asked in (
-            ("debug_images", self.debug_images),
-            ("validate", self.validate),
-        ):
-            if asked:
-                raise NotImplementedError(f"FrontendConfig option {name} is not ported yet")
+        if self.debug_images:
+            raise NotImplementedError("FrontendConfig option debug_images is not ported yet")
         c = self.calib
         self.intrinsics_left = Intrinsics.create(**c["intrinsics_left"])
         self.intrinsics_right = Intrinsics.create(**c["intrinsics_right"])

@@ -7,12 +7,17 @@ the host-side SLAMProblem. Results are fetched one keyframe deep: right
 after keyframe k is launched, its host-needed fields start copying into
 pinned host memory behind a CUDA event, and they are read when keyframe
 k + 1 arrives (or when an accessor asks), so the device never waits for the
-host between keyframes.
+host between keyframes. With `validate` the fetch is synchronous instead, and
+each keyframe is checked (utils/checks.check_keyframe_result) before it is
+accumulated. `save_checkpoint` / `load_checkpoint` write and read the JAX
+package's checkpoint npz, so a run checkpointed by either package resumes in
+the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -25,7 +30,8 @@ from vision_slam_frontend_tpu_torch.frontend.keyframe import (
     WindowState,
     keyframe_step,
 )
-from vision_slam_frontend_tpu_torch.ops.descriptors import get_family
+from vision_slam_frontend_tpu_torch.io.serialize import arrays_to_problem, problem_to_arrays
+from vision_slam_frontend_tpu_torch.ops.descriptors import descriptor_dtype, get_family
 from vision_slam_frontend_tpu_torch.types.slam_types import (
     FeatureMatch,
     OdometryFactor,
@@ -36,6 +42,7 @@ from vision_slam_frontend_tpu_torch.types.slam_types import (
     VisionFeature,
 )
 from vision_slam_frontend_tpu_torch.utils import np_geom
+from vision_slam_frontend_tpu_torch.utils.checks import check_keyframe_result
 
 # KeyframeResult fields the host accumulator reads.
 _HOST_FIELDS = (
@@ -43,6 +50,8 @@ _HOST_FIELDS = (
     "window_curr_idx", "window_matched", "window_frame_id", "num_features",
     "num_stereo_candidates", "stereo_threshold",
 )
+# ... and, in validate mode, the raw pixels the checks bound to the image.
+_VALIDATE_FIELDS = _HOST_FIELDS + ("pixels_raw", "right_pixels_raw")
 
 
 class Frontend:
@@ -58,9 +67,10 @@ class Frontend:
         self.config = config
         self.device = torch.device(device)
         self._params = StepParams.from_config(config, self.device)
+        family = get_family(config.descriptor_family)
         self._state = WindowState.create(
             config.frame_life, config.max_features, config.stereo_threshold_init,
-            self.device, words=get_family(config.descriptor_family).words,
+            self.device, words=family.words, desc_dtype=descriptor_dtype(family),
         )
         self._curr_frame_id = 0
 
@@ -163,15 +173,20 @@ class Frontend:
             "odom_q": self._odom_q.copy(),
             "prev_odom_t": self._prev_odom_t.copy(),
             "prev_odom_q": self._prev_odom_q.copy(),
+            "image_shape": tuple(np.shape(left_image)[:2]),
         }
         # Pipeline one deep: materialize keyframe k-1 while k computes.
         self._flush_pending()
-        host = {f: getattr(result, f).to("cpu", non_blocking=True) for f in _HOST_FIELDS}
+        fields = _VALIDATE_FIELDS if self.config.validate else _HOST_FIELDS
+        host = {f: getattr(result, f).to("cpu", non_blocking=True) for f in fields}
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
         self._pending = (ctx, host, event)
+        if self.config.validate:
+            # Validation reports the error at the offending keyframe: synchronous.
+            self._flush_pending()
         self._prev_odom_t = self._odom_t.copy()
         self._prev_odom_q = self._odom_q.copy()
         self._curr_frame_id += 1
@@ -190,6 +205,8 @@ class Frontend:
 
     def _materialize(self, ctx: dict, r: KeyframeResult) -> None:
         fid = ctx["fid"]
+        if self.config.validate:
+            check_keyframe_result(fid, r, ctx["image_shape"], self.config.max_features)
         self._accumulate(fid, r, ctx)
         matched_per_slot = np.asarray(r.window_matched).sum(axis=1)
         self._stats.append(
@@ -260,6 +277,88 @@ class Frontend:
                     rotation=np_geom.quat_multiply(ctx["odom_q"], q_prev_inv).astype(np.float32),
                 )
             )
+
+    # ------------------------------------------------------------------
+    # Checkpoint / resume
+    # ------------------------------------------------------------------
+
+    def save_checkpoint(self, path: str) -> None:
+        """Snapshot the whole frontend state (the accumulated problem, the
+        window state, the odometry latch, the frame counter) in the JAX
+        package's keys and dtypes: packed descriptor words as uint32, float
+        descriptors as float32. Written through `<path>.tmp`, then renamed."""
+        self._flush_pending()
+        data = problem_to_arrays(self.get_slam_problem(), self._node_track_ids)
+        state = {f.name: getattr(self._state, f.name).cpu().numpy() for f in dataclasses.fields(self._state)}
+        desc = state["desc"]
+        data.update({
+            "ckpt_window_kps": state["kps"],
+            "ckpt_window_desc": desc.view(np.uint32) if desc.dtype == np.int32 else desc,
+            "ckpt_window_valid": state["valid"],
+            "ckpt_window_track_id": state["track_id"],
+            "ckpt_window_frame_id": state["frame_id"],
+            "ckpt_window_count": state["count"],
+            "ckpt_stereo_threshold": state["stereo_threshold"],
+            "ckpt_window_points3d": state["points3d"],
+            "ckpt_window_pose_t": state["pose_t"],
+            "ckpt_window_pose_q": state["pose_q"],
+            "ckpt_curr_frame_id": np.int64(self._curr_frame_id),
+            "ckpt_odom_initialized": np.bool_(self._odom_initialized),
+            "ckpt_init_odom_t": self._init_odom_t,
+            "ckpt_init_odom_q": self._init_odom_q,
+            "ckpt_prev_odom_t": self._prev_odom_t,
+            "ckpt_prev_odom_q": self._prev_odom_q,
+            "ckpt_odom_t": self._odom_t,
+            "ckpt_odom_q": self._odom_q,
+            "ckpt_odom_timestamp": np.float64(self._odom_timestamp),
+        })
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:  # a file object: savez appends no ".npz"
+            np.savez_compressed(f, **data)
+        os.replace(tmp, path)
+
+    def load_checkpoint(self, path: str) -> float:
+        """Restore a state saved by either package's save_checkpoint; returns
+        the last odometry timestamp it had seen (callers skip events at or
+        before it). Window fields a checkpoint lacks (points, poses: older
+        checkpoints) start empty, as in the JAX package."""
+        with np.load(path) as raw:
+            data = dict(raw)
+        self._pending = None
+        problem = arrays_to_problem(data)
+        self._nodes = problem.nodes
+        self._vision_factors = problem.vision_factors
+        self._odometry_factors = problem.odometry_factors
+        if "feat_track" in data and len(self._nodes):
+            flat = data["feat_track"]
+            self._node_track_ids = []
+            off = 0
+            for n in self._nodes:
+                k = len(n.features)
+                self._node_track_ids.append(flat[off : off + k].copy())
+                off += k
+        W, K = data["ckpt_window_kps"].shape[:2]
+        data.setdefault("ckpt_window_points3d", np.zeros((W, K, 3), np.float32))
+        data.setdefault("ckpt_window_pose_t", np.zeros((W, 3), np.float32))
+        data.setdefault("ckpt_window_pose_q", np.tile(np.array([1.0, 0, 0, 0], np.float32), (W, 1)))
+        state = WindowState.from_numpy(data, self.device)
+        if state.desc.shape != self._state.desc.shape or state.desc.dtype != self._state.desc.dtype:
+            raise ValueError(
+                f"checkpoint {path}: window descriptors {tuple(state.desc.shape)} {state.desc.dtype}, but this "
+                f"frontend ({self.config.descriptor_family}) keeps {tuple(self._state.desc.shape)} "
+                f"{self._state.desc.dtype}"
+            )
+        self._state = state
+        self._curr_frame_id = int(data["ckpt_curr_frame_id"])
+        self._odom_initialized = bool(data["ckpt_odom_initialized"])
+        self._init_odom_t = data["ckpt_init_odom_t"]
+        self._init_odom_q = data["ckpt_init_odom_q"]
+        self._prev_odom_t = data["ckpt_prev_odom_t"]
+        self._prev_odom_q = data["ckpt_prev_odom_q"]
+        self._odom_t = data["ckpt_odom_t"]
+        self._odom_q = data["ckpt_odom_q"]
+        self._odom_timestamp = float(data["ckpt_odom_timestamp"])
+        return self._odom_timestamp
 
     # ------------------------------------------------------------------
     # Output API

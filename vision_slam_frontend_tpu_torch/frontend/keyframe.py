@@ -75,10 +75,11 @@ class StepParams:
 @dataclasses.dataclass
 class WindowState:
     """Sliding window of the last W keyframes; slot 0 is the oldest.
-    Descriptor words are int32 holding the reference's uint32 bits."""
+    Descriptors are int32 words holding the reference's uint32 bits
+    (hamming families) or float32 vectors (l2 families)."""
 
     kps: torch.Tensor  # (W, K, 2) f32 raw pixel coords
-    desc: torch.Tensor  # (W, K, words) int32 packed descriptors
+    desc: torch.Tensor  # (W, K, words) int32 packed words or float32 vectors
     valid: torch.Tensor  # (W, K) bool
     track_id: torch.Tensor  # (W, K) int32
     frame_id: torch.Tensor  # (W,) int32, -1 for empty slots
@@ -90,12 +91,12 @@ class WindowState:
 
     @classmethod
     def create(cls, window: int, capacity: int, stereo_threshold_init: float, device,
-               words: int = 8) -> "WindowState":
+               words: int = 8, desc_dtype: torch.dtype = torch.int32) -> "WindowState":
         pose_q = torch.zeros((window, 4), dtype=torch.float32, device=device)
         pose_q[:, 0] = 1.0
         return cls(
             kps=torch.zeros((window, capacity, 2), dtype=torch.float32, device=device),
-            desc=torch.zeros((window, capacity, words), dtype=torch.int32, device=device),
+            desc=torch.zeros((window, capacity, words), dtype=desc_dtype, device=device),
             valid=torch.zeros((window, capacity), dtype=torch.bool, device=device),
             track_id=torch.zeros((window, capacity), dtype=torch.int32, device=device),
             frame_id=torch.full((window,), -1, dtype=torch.int32, device=device),
@@ -110,7 +111,8 @@ class WindowState:
     def from_numpy(cls, mapping: Mapping[str, np.ndarray], device) -> "WindowState":
         """From numpy arrays keyed by field name (the JAX package's
         WindowState leaves) or by the JAX package's checkpoint keys
-        (`ckpt_window_<field>`, `ckpt_stereo_threshold`)."""
+        (`ckpt_window_<field>`, `ckpt_stereo_threshold`). Descriptors keep
+        float32 (l2 families); uint32 words keep their bits as int32."""
 
         def get(name):
             for key in (name, f"ckpt_window_{name}", f"ckpt_{name}"):
@@ -123,8 +125,12 @@ class WindowState:
         fields = {}
         for f in dataclasses.fields(cls):
             a = get(f.name)
-            # uint32 descriptor words keep their bits as int32.
-            a = a.view(np.int32) if a.dtype == np.uint32 else a.astype(dtypes.get(f.name, np.float32))
+            if f.name == "desc" and a.dtype.kind == "f":
+                a = a.astype(np.float32)
+            elif a.dtype == np.uint32:
+                a = a.view(np.int32)
+            else:
+                a = a.astype(dtypes.get(f.name, np.float32))
             fields[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
         return cls(**fields)
 
