@@ -98,8 +98,29 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               (exit 130, partial problem and checkpoint) then --resume, each
               against the uninterrupted run; (c) --validate for ORB and SIFT,
               equal to phase 5's unvalidated runs
-Then a JSON line of every kernel shape's numbers and the BA, local-BA and
-golden-loop numbers, the kernels JSON line and, last, the result line.
+ 10. inputs   the real inputs: (a) the JPEG decode route taken, which must
+              be CARD_DECODE_ROUTE (the card's probe), the native library's
+              build (or why it is unavailable) and one 640x480 pair's host
+              decode ms; (b) tests/test_golden_bag.py on the card: the port
+              writes the degraded bag (100 frames, 512x384, JPEG quality 88,
+              seed 9, odometry drift 0.02) and saves its config, the CLI runs
+              it with --config for all five families, then tracks and BA
+              (15 iterations, trim 8), every assertion against a copy of
+              FAMILY_GOLDEN, readings beside pins with the CLI and BA
+              seconds; the ORB run's launches, and its int and bool fields
+              and track ids equal to a CPU run over the first 20 keyframes;
+              (c) the end-to-end bag rate: the CLI on a 150-frame 640x480
+              degraded bag (K=512, W=10) in a process of its own, a warm-up
+              run, then with and without the decode-ahead thread in turns:
+              frames/s, latency percentiles, peak RSS and device memory,
+              host decode ms per pair; (d) tests/test_io.py's 5-frame KITTI
+              (with --output_bag, read back, --ply and --html) and EuRoC
+              inputs, card against CPU, and bag_extract; (e) the 6x5
+              survival matrix of tests/test_adversarial_conditions.py on the
+              card, against a copy of its CONDITIONS
+Then a JSON line of every kernel shape's numbers and the BA, local-BA,
+golden-loop and input numbers, the kernels JSON line and, last, the result
+line.
 """
 
 from __future__ import annotations
@@ -257,6 +278,66 @@ CKPT_INPUT = "synthetic:12"
 CKPT_INTERRUPT_AFTER = 6
 CKPT_EVERY = 3
 
+# Phase 10 (a): the JPEG decoder the H100 machine has. A probe of that machine
+# found cv2 and PIL but no libjpeg headers, so the native decoder cannot be
+# built there; the run fails where the route taken differs.
+CARD_DECODE_ROUTE = "cv2"
+# Phase 10 (b): tests/test_golden_bag.py's fixture and its per-family pins
+# (FAMILY_GOLDEN, tests/test_golden_bag.py:35-53), copied: chip_smoke
+# imports no test module.
+BAG_FRAMES = 100
+BAG_ODOM_DRIFT = 0.02
+BAG_JPEG_QUALITY = 88
+BAG_SEED = 9
+BAG_CONFIG = dict(max_features=256, frame_life=8, fast_threshold=12.0)
+BAG_CPU_POSES = 20
+BAG_GOLDEN = {
+    "orb": {"ate_ba_max": 0.12, "min_landmarks": 670, "min_feats_mean": 70, "min_feats_min": 22},
+    "brisk": {"ate_ba_max": 0.12, "min_landmarks": 450, "min_feats_mean": 55, "min_feats_min": 15},
+    "akaze": {"ate_ba_max": 0.27, "min_landmarks": 660, "min_feats_mean": 60, "min_feats_min": 20},
+    "sift": {"ate_ba_max": 0.25, "min_landmarks": 900, "min_feats_mean": 80, "min_feats_min": 30},
+    "freak": {"ate_ba_max": 0.13, "min_landmarks": 660, "min_feats_mean": 65, "min_feats_min": 27},
+}
+# Phase 10 (c): the end-to-end bag rate (bench.py's degraded-bag row:
+# SyntheticRig(), K=512, W=10, fast threshold 12).
+RATE_FRAMES = 150
+RATE_CONFIG = dict(max_features=512, frame_life=10, fast_threshold=12.0)
+# Phase 10 (d): the 5-frame KITTI and EuRoC inputs of tests/test_io.py.
+DATASET_FRAMES = 5
+DATASET_ARGS = ["--max_features", "192", "--frame_life", "4"]
+# Phase 10 (e): tests/test_adversarial_conditions.py's 6x5 survival matrix
+# (CONDITIONS, FAMILIES, NUM_FRAMES), copied.
+CONDITION_FRAMES = 30
+CONDITION_FAMILIES = ["orb", "brisk", "akaze", "sift", "freak"]
+CONDITIONS = {
+    "heavy_blur": dict(
+        degrader=dict(seed=3, max_blur_px=6.0, noise_read=4.0),
+        seq=dict(step=0.25, yaw_rate=2 * np.pi / 210),
+    ),
+    "exposure_steps": dict(
+        degrader=dict(seed=4, flicker=0.35, offset_drift=24.0, max_blur_px=1.5),
+        seq=dict(step=0.25, yaw_rate=2 * np.pi / 210),
+    ),
+    "rotation_dominant": dict(
+        degrader=dict(seed=5, max_blur_px=2.0),
+        seq=dict(step=0.08, yaw_rate=2 * np.pi / 30),
+    ),
+    "low_contrast": dict(
+        degrader=dict(seed=6, max_blur_px=2.0, noise_read=1.5),
+        contrast=0.35,
+        seq=dict(step=0.25, yaw_rate=2 * np.pi / 210),
+    ),
+    "camera_roll": dict(
+        degrader=dict(seed=7, max_blur_px=2.0),
+        seq=dict(step=0.1, yaw_rate=0.0,
+                 roll_rate=np.deg2rad(12.0), pitch_rate=np.deg2rad(-0.8)),
+    ),
+    "forward_approach": dict(
+        degrader=dict(seed=8, max_blur_px=2.0),
+        seq=dict(step=0.7, yaw_rate=0.0),
+    ),
+}
+
 
 def nvidia_smi(query: str, fmt: str = "csv,noheader") -> str:
     """The first card's `nvidia-smi --query-gpu=<query>` line."""
@@ -290,6 +371,13 @@ def check_equal(what: str, a, b) -> None:
             f"{what}: {int((~same).sum())} of {a.numel()} elements differ; first at {first}: "
             f"{a[first].item()} vs {b[first].item()}"
         )
+
+
+def check_equal_arrays(what: str, a, b) -> None:
+    """check_equal on numpy arrays."""
+    import torch
+
+    check_equal(what, torch.from_numpy(np.ascontiguousarray(a)), torch.from_numpy(np.ascontiguousarray(b)))
 
 
 def max_abs_err(a, b) -> float:
@@ -1234,15 +1322,17 @@ def perf_numbers(printed: str) -> dict:
     return out
 
 
-def run_cli_quiet(argv) -> tuple[int, str]:
+def run_cli_quiet(argv, main=None) -> tuple[int, str]:
+    """(exit code, printout) of `main` (default: the frontend CLI) on argv."""
     import contextlib
     import io
 
-    from vision_slam_frontend_tpu_torch.cli.slam_frontend import main as cli_main
+    if main is None:
+        from vision_slam_frontend_tpu_torch.cli.slam_frontend import main
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = cli_main(argv)
+        rc = main(argv)
     return rc, buf.getvalue()
 
 
@@ -1654,6 +1744,432 @@ def phase_validate(ck, dev, tmp) -> tuple[str, dict]:
     return "(c) --validate on the card, every keyframe checked, none failed: " + "; ".join(parts) + \
         f" with phase 5's unvalidated runs; launches {launches}", launches
 
+# ---------------------------------------------------------------------------
+# Phase 10: the real inputs
+# ---------------------------------------------------------------------------
+
+
+def decode_pair_ms(bag: str) -> tuple[float, float, int]:
+    """(first pair's ms, median ms, pairs) of host decode of `bag`'s stereo
+    pairs through io/image.decode_compressed_image."""
+    from vision_slam_frontend_tpu_torch.io import rosbag
+    from vision_slam_frontend_tpu_torch.io.image import decode_compressed_image
+
+    images = [m for _, _, m in rosbag.read_messages(bag) if "data" in m]  # left, right, left, ...
+    ms = []
+    for left, right in zip(images[0::2], images[1::2]):
+        t0 = time.perf_counter()
+        a, b = decode_compressed_image(left), decode_compressed_image(right)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(a.shape == b.shape == (480, 640), f"decoded pair of shape {a.shape}, {b.shape}")
+    return ms[0], statistics.median(ms), len(ms)
+
+
+def bag_readings(npz: str, gt: dict, config, dev) -> dict:
+    """tests/test_golden_bag.py's readings of one CLI run: keyframes,
+    features per node, tracks, odometry and BA ATE."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend import BASolverConfig, ate_rmse, build_ba_problem, optimize
+    from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
+    from vision_slam_frontend_tpu_torch.io.serialize import load_problem
+
+    problem = load_problem(npz)
+    feats = [len(n.features) for n in problem.nodes]
+    t0 = time.perf_counter()
+    ba = build_ba_problem(problem, left_cam_to_robot=np.asarray(config.left_cam_to_robot), min_track_length=2,
+                          device=dev)
+    gt_pos = np.stack([gt[round(n.timestamp, 6)] for n in problem.nodes])
+    opt, info = optimize(ba, cam=CameraParams.from_config(config, device=dev),
+                         solver=BASolverConfig(max_iterations=15, trim_threshold=8.0))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return dict(
+        keyframes=len(problem.nodes), features_mean=float(np.mean(feats)), features_min=int(min(feats)),
+        landmarks=int(ba.landmark_mask.sum()), observations=int(ba.obs_mask.sum()),
+        ate_odom=ate_rmse(ba.poses_t.double().cpu().numpy(), gt_pos, align=False),
+        ate_ba=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_pos, align=False),
+        cost0=float(info["history"][0]), cost=float(info["cost"]), iterations=int(info["iterations"]),
+        ba_s=time.perf_counter() - t0,
+    )
+
+
+def bag_failures(family: str, r: dict) -> list[str]:
+    """TestDegradedBagGolden's assertions on one family's readings, as the
+    failed ones' descriptions (tests/test_golden_bag.py's three tests)."""
+    g = BAG_GOLDEN[family]
+    checks = [
+        (r["keyframes"] >= BAG_FRAMES - 6, f"keyframes {r['keyframes']} < {BAG_FRAMES - 6}"),
+        (r["features_mean"] > g["min_feats_mean"], f"features_mean {r['features_mean']} <= {g['min_feats_mean']}"),
+        (r["features_min"] > g["min_feats_min"], f"features_min {r['features_min']} <= {g['min_feats_min']}"),
+        (r["landmarks"] > g["min_landmarks"], f"landmarks {r['landmarks']} <= {g['min_landmarks']}"),
+        (r["observations"] / max(r["landmarks"], 1) > 2.0, "observations per landmark <= 2"),
+        (0.03 < r["ate_odom"] < 0.6, f"odometry ATE {r['ate_odom']} outside (0.03, 0.6)"),
+        (bool(np.isfinite(r["cost"])), "non-finite BA cost"),
+        (r["ate_ba"] < r["ate_odom"], f"BA ATE {r['ate_ba']} not below odometry's {r['ate_odom']}"),
+        (r["ate_ba"] < g["ate_ba_max"], f"BA ATE {r['ate_ba']} >= {g['ate_ba_max']}"),
+    ]
+    return [msg for ok, msg in checks if not ok]
+
+
+def prefix_int_fields(npz: str, n: int) -> dict:
+    """The int and bool fields of a problem npz for its first `n` nodes (what
+    a run stopped at n keyframes writes)."""
+    z = np.load(npz)
+    ids = z["nodes_id"][:n]
+    vf = np.isin(z["vf_pose_current"], ids)
+    masks = {"feat_": np.isin(z["feat_node"], ids), "vfm_": np.isin(z["vfm_factor"], np.flatnonzero(vf)),
+             "vf_": vf, "of_": np.isin(z["of_pose_j"], ids)}
+    out = {"nodes_id": ids, "format_version": z["format_version"]}
+    for k in z.files:
+        if z[k].dtype.kind in "iub" and k not in out:
+            prefix = next((p for p in masks if k.startswith(p)), None)
+            check(prefix is not None, f"npz int field {k} has no prefix rule")
+            out[k] = z[k][masks[prefix]]
+    return out
+
+
+def phase_bag_golden(ck, dev, tmp, route: str, card: str) -> tuple[dict, dict, str]:
+    """(b): tests/test_golden_bag.py on the card. The port writes the
+    degraded bag and saves its config; the CLI runs every family with
+    --config, then tracks and BA; the ORB run's int fields and track ids
+    equal a CPU run's over the first BAG_CPU_POSES keyframes. Returns
+    (readings per family, ORB launches, bag path)."""
+    from vision_slam_frontend_tpu_torch.frontend import FrontendConfig
+    from vision_slam_frontend_tpu_torch.io.degrade import write_degraded_bag
+    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
+
+    t0 = time.perf_counter()
+    rig = SyntheticRig(**GOLDEN_RIG)
+    bag = os.path.join(tmp, "degraded.bag")
+    gt = write_degraded_bag(bag, rig=rig, num_frames=BAG_FRAMES, odom_drift=BAG_ODOM_DRIFT,
+                            jpeg_quality=BAG_JPEG_QUALITY, seed=BAG_SEED)
+    config = FrontendConfig(calib=rig.calib(), **BAG_CONFIG)
+    cfg = os.path.join(tmp, "rig.yaml")
+    config.save(cfg)
+    say("10 inputs", f"(b) wrote tests/test_golden_bag.py's bag ({BAG_FRAMES} frames, 512x384, JPEG quality "
+        f"{BAG_JPEG_QUALITY}, seed {BAG_SEED}, odometry drift {BAG_ODOM_DRIFT}; {os.path.getsize(bag) / 2**20:.1f} MB) "
+        f"and its config in {time.perf_counter() - t0:.1f} s")
+    readings, failed, launches = {}, [], None
+    for family in BAG_GOLDEN:
+        out = os.path.join(tmp, f"bag_{family}.npz")
+        argv = ["--input", bag, "--config", cfg, "--descriptor_family", family, "--output", out, "-v", "1"]
+        ck.reset_launch_counts()
+        t1 = time.perf_counter()
+        rc, printed = run_cli_quiet(argv + ["--device", str(dev)])
+        frontend_s = time.perf_counter() - t1
+        check(rc == 0, f"CLI on the degraded bag, {family}: exit code {rc}")
+        check(f"[decode] {route}" in printed, f"CLI {family} did not decode with {route}: {printed[:300]}")
+        if family == "orb":
+            launches = dict(ck.LAUNCHES)
+            check_launches("degraded bag, orb", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
+                           absent=("patch_windows",))
+        r = readings[family] = bag_readings(out, gt, config, dev)
+        r["frontend_s"] = frontend_s
+        failures = bag_failures(family, r)
+        failed += [f"{family}: {m}" for m in failures]
+        g = BAG_GOLDEN[family]
+        say("10 inputs", f"(b) [{card}] {family}: {r['keyframes']} keyframes (pin >= {BAG_FRAMES - 6}), features mean "
+            f"{r['features_mean']:.1f} (> {g['min_feats_mean']}) min {r['features_min']} (> {g['min_feats_min']}), "
+            f"landmarks {r['landmarks']} (> {g['min_landmarks']}), observations {r['observations']} "
+            f"({r['observations'] / max(r['landmarks'], 1):.2f} per landmark, > 2), ATE odometry {r['ate_odom']:.4f} "
+            f"(0.03, 0.6) BA {r['ate_ba']:.4f} (< {g['ate_ba_max']} and below odometry), cost {r['cost0']:.1f} -> "
+            f"{r['cost']:.1f} in {r['iterations']} iterations; CLI {frontend_s:.1f} s (decode included), BA "
+            f"{r['ba_s']:.1f} s" + ("; every pin met" if not failures else "; MISSED: " + "; ".join(failures)))
+    check(not failed, "degraded-bag pins missed: " + "; ".join(failed))
+    cpu_out = os.path.join(tmp, "bag_orb_cpu.npz")
+    t1 = time.perf_counter()
+    rc, _ = run_cli_quiet(["--input", bag, "--config", cfg, "--output", cpu_out, "--device", "cpu",
+                           "--max_poses", str(BAG_CPU_POSES)])
+    check(rc == 0, f"CPU CLI on the degraded bag: exit code {rc}")
+    card, host = prefix_int_fields(os.path.join(tmp, "bag_orb.npz"), BAG_CPU_POSES), prefix_int_fields(cpu_out, 10**9)
+    check(sorted(card) == sorted(host), "int fields differ between the card's and the CPU's npz")
+    for k in host:
+        check_equal_arrays(f"degraded bag orb, first {BAG_CPU_POSES} keyframes: {k} card vs CPU", card[k], host[k])
+    say("10 inputs", f"(b) orb on the card vs the CPU over the first {BAG_CPU_POSES} keyframes of the same bag: "
+        f"{len(host)} int and bool fields equal ({len(host['feat_track'])} track ids, {len(host['vfm_factor'])} "
+        f"matches; CPU run {time.perf_counter() - t1:.1f} s); orb launches {launches}")
+    return readings, launches, bag
+
+
+RATE_PROCESS = r"""
+import contextlib, io, json, sys
+from vision_slam_frontend_tpu_torch.cli.slam_frontend import main
+argv = json.loads(sys.argv[1])
+runs = []
+for mode in ("warm-up", "prefetch", "no_prefetch", "no_prefetch", "prefetch"):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv + (["--no_prefetch"] if mode == "no_prefetch" else []))
+    runs.append({"mode": mode, "rc": rc, "printed": buf.getvalue()})
+print(json.dumps(runs))
+"""
+
+
+def rate_numbers(printed: str) -> dict:
+    import re
+
+    num = r"([\d.]+)"
+    out = {}
+    for key, pat in {"frames": rf"\[perf\] {num} stereo frames", "keyframes": rf"stereo frames, {num} keyframes",
+                     "seconds": rf"keyframes in {num}s", "fps": rf"\({num} frames/s", "p50_ms": rf"p50={num}",
+                     "p90_ms": rf"p90={num}", "p99_ms": rf"p99={num}", "max_ms": rf"max={num}",
+                     "peak_rss_mb": rf"peak RSS {num} MB", "peak_device_mb": rf"peak device memory {num} MB"}.items():
+        m = re.search(pat, printed)
+        check(m is not None or key == "peak_device_mb", f"CLI output has no {key}")
+        out[key] = float(m.group(1)) if m else None
+    return out
+
+
+def phase_bag_rate(dev, tmp, card: str) -> tuple[dict, str]:
+    """(c): bench.py's end-to-end degraded-bag rate: the CLI on a 150-frame
+    640x480 bag (K=512, W=10) in a process of its own, a warm-up run, then
+    with and without the decode-ahead thread in turns. Returns (numbers,
+    bag path)."""
+    from vision_slam_frontend_tpu_torch.frontend import FrontendConfig
+    from vision_slam_frontend_tpu_torch.io.degrade import write_degraded_bag
+    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
+
+    t0 = time.perf_counter()
+    bag = os.path.join(tmp, "rate.bag")
+    write_degraded_bag(bag, rig=SyntheticRig(), num_frames=RATE_FRAMES)
+    cfg = os.path.join(tmp, "rate.yaml")
+    FrontendConfig(calib=SyntheticRig().calib(), **RATE_CONFIG).save(cfg)
+    written_s = time.perf_counter() - t0
+    argv = ["--input", bag, "--config", cfg, "--output", os.path.join(tmp, "rate.npz"), "--device", str(dev)]
+    proc = subprocess.run([sys.executable, "-c", RATE_PROCESS, json.dumps(argv)], capture_output=True, text=True,
+                          timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"bag-rate process exit code {proc.returncode}: {proc.stderr[-2000:]}")
+    runs = json.loads(proc.stdout.strip().splitlines()[-1])
+    numbers = {"bag_written_s": written_s, "runs": []}
+    for r in runs:
+        check(r["rc"] == 0, f"bag-rate CLI ({r['mode']}) exit code {r['rc']}")
+        n = rate_numbers(r["printed"])
+        check(n["frames"] == RATE_FRAMES, f"bag-rate CLI ({r['mode']}) saw {n['frames']} frames")
+        check(n["peak_device_mb"] is not None or dev.type != "cuda", "the bag-rate CLI printed no device memory")
+        numbers["runs"].append(dict(mode=r["mode"], **n))
+    measured = numbers["runs"][1:]
+    for mode in ("prefetch", "no_prefetch"):
+        numbers[mode + "_fps"] = [x["fps"] for x in measured if x["mode"] == mode]
+    first_ms, median_ms, pairs = decode_pair_ms(bag)
+    numbers.update(decode_first_pair_ms=first_ms, decode_pair_ms=median_ms, decode_pairs=pairs)
+    line = (f"(c) [{card}] end-to-end bag rate, CLI on a {RATE_FRAMES}-frame 640x480 degraded bag (K=512, W=10, "
+            f"fast 12; written in {written_s:.1f} s) in its own process, runs in turns: " + "; ".join(
+                f"{x['mode']} {x['fps']:.2f} frames/s ({x['keyframes']:.0f} keyframes in {x['seconds']:.2f} s), "
+                f"latency ms p50 {x['p50_ms']} p90 {x['p90_ms']} p99 {x['p99_ms']} max {x['max_ms']}, peak RSS "
+                f"{x['peak_rss_mb']:.0f} MB, peak device {x['peak_device_mb']} MB" for x in numbers["runs"])
+            + f" | host decode of one 640x480 JPEG pair: first {first_ms:.2f} ms, median {median_ms:.2f} ms over "
+            f"{pairs} pairs")
+    return numbers, line
+
+
+def compare_exports(gpu: dict, cpu: dict) -> str:
+    """The card's --output_bag, --ply and --html against the CPU's: the bag
+    read back through deserialize_slam_problem equals its own npz and, in
+    ids and matches, the CPU's; PLY and HTML counts and node positions
+    equal, landmarks within 1e-3 relative."""
+    import re
+
+    from vision_slam_frontend_tpu_torch.io import rosbag
+    from vision_slam_frontend_tpu_torch.io.ros_msgs import deserialize_slam_problem
+
+    probs = {}
+    for name, paths in (("card", gpu), ("cpu", cpu)):
+        msgs = list(rosbag.read_messages(paths["bag"], raw=True))
+        check([m[0] for m in msgs] == ["extrinsics", "intrinsics", "slam_problem"], f"{name} output bag topics")
+        probs[name] = p = deserialize_slam_problem(msgs[2][2]["raw"])
+        z = np.load(paths["npz"])
+        check_equal_arrays(f"{name} output bag node ids vs npz", np.array([n.node_idx for n in p.nodes], np.int64),
+                           z["nodes_id"])
+        check_equal_arrays(f"{name} output bag feature ids vs npz",
+                           np.array([f.feature_idx for n in p.nodes for f in n.features], np.int64), z["feat_idx"])
+        check(np.allclose(np.stack([n.pose.loc for n in p.nodes]), z["nodes_loc"], atol=1e-7),
+              f"{name} output bag poses differ from its npz")
+        check(np.allclose(np.array([f.pixel for n in p.nodes for f in n.features]), z["feat_pixel"], atol=1e-4),
+              f"{name} output bag pixels differ from its npz")
+    match = lambda p: [(v.pose_idx_initial, v.pose_idx_current, [(m.feature_idx_initial, m.feature_idx_current)
+                                                                  for m in v.feature_matches]) for v in p.vision_factors]
+    check(match(probs["card"]) == match(probs["cpu"]), "output bag vision factors differ card vs CPU")
+    heads, verts = [], []
+    for paths in (gpu, cpu):
+        data = open(paths["ply"], "rb").read()
+        end = data.index(b"end_header\n") + len(b"end_header\n")
+        heads.append(data[:end])
+        n = int(re.search(rb"element vertex (\d+)", data).group(1))
+        verts.append((np.frombuffer(data[end:end + 15 * n], np.dtype([("xyz", "<f4", 3), ("rgb", "u1", 3)])),
+                      data[end + 15 * n:]))
+    check(heads[0] == heads[1], "PLY headers differ card vs CPU")
+    check(verts[0][1] == verts[1][1] and np.array_equal(verts[0][0]["rgb"], verts[1][0]["rgb"]),
+          "PLY edges or colours differ card vs CPU")
+    check(np.allclose(verts[0][0]["xyz"], verts[1][0]["xyz"], rtol=1e-3, atol=1e-4), "PLY vertices differ card vs CPU")
+    stats = [re.search(r"<div id=\"hud\">[^<]*<br>([^<]*)<br>", open(p["html"]).read()).group(1) for p in (gpu, cpu)]
+    check(stats[0] == stats[1], f"HTML viewer counts differ card vs CPU: {stats}")
+    n_vert = int(re.search(rb"element vertex (\d+)", heads[0]).group(1))
+    return (f"--output_bag read back: {len(probs['card'].nodes)} nodes, ids, matches and poses equal its npz and the "
+            f"CPU's; --ply {n_vert} vertices within 1e-3; --html '{stats[0]}' as on the CPU")
+
+
+def phase_datasets(ck, dev, tmp, golden_bag: str) -> tuple[str, dict]:
+    """(d): tests/test_io.py's 5-frame KITTI and EuRoC inputs through the
+    CLI on the card and on the CPU (KITTI with --output_bag, --ply and
+    --html), and bag_extract. Returns (line, launches of the KITTI run)."""
+    from vision_slam_frontend_tpu_torch.cli.bag_extract import main as extract
+    from vision_slam_frontend_tpu_torch.io import euroc, kitti, rosbag
+    from vision_slam_frontend_tpu_torch.io.image import decode_compressed_image, load_gray
+    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig, generate_sequence
+
+    rig = SyntheticRig()
+    frames = list(generate_sequence(num_frames=DATASET_FRAMES, step=0.25, rig=rig))
+    kdir, edir = os.path.join(tmp, "kitti", "05"), os.path.join(tmp, "euroc")
+    kitti.write_sequence(kdir, frames, rig)
+    euroc.write_directory(edir, frames, rig)
+    parts, launches = [], {}
+    paths = {d: {k: os.path.join(tmp, f"kitti_{d}.{k}") for k in ("npz", "bag", "ply", "html")}
+             for d in ("card", "cpu")}
+    for d, device in (("card", dev), ("cpu", "cpu")):
+        ck.reset_launch_counts()
+        rc, _ = run_cli_quiet(["--input", kdir, "--dataset", "kitti", *DATASET_ARGS, "--output", paths[d]["npz"],
+                               "--output_bag", paths[d]["bag"], "--ply", paths[d]["ply"], "--html", paths[d]["html"],
+                               "--device", str(device)])
+        check(rc == 0, f"CLI on KITTI ({d}): exit code {rc}")
+        if d == "card":
+            launches = dict(ck.LAUNCHES)
+            check_launches("KITTI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"))
+    z = np.load(paths["card"]["npz"])
+    check(len(z["nodes_id"]) == DATASET_FRAMES - 1 and np.bincount(z["feat_node"]).min() > 20,
+          f"KITTI: {len(z['nodes_id'])} nodes, features per node {np.bincount(z['feat_node'])}")
+    parts.append(f"KITTI --dataset kitti: {compare_problems(paths['card']['npz'], paths['cpu']['npz'])}; "
+                 + compare_exports(paths["card"], paths["cpu"]))
+    summary, e_launches, n, agree = run_cli(ck, ["--input", edir, *DATASET_ARGS], dev, tmp, "euroc")
+    check_launches("EuRoC", e_launches, ("fast_scores_nms", "extract_patches", "hamming_top2"))
+    z = np.load(os.path.join(tmp, "euroc_gpu.npz"))
+    check(n == DATASET_FRAMES - 1 and np.bincount(z["feat_node"]).min() > 20, f"EuRoC: {n} nodes")
+    parts.append(f"EuRoC (auto-detected): {agree}")
+    out_dir = os.path.join(tmp, "extracted")
+    rc, printed = run_cli_quiet(["--input", golden_bag, "--output_dir", out_dir, "--max_images", "3"], extract)
+    check(rc == 0 and "Extracted 3 images" in printed, f"bag_extract: exit code {rc}")
+    images = [m for _, _, m in rosbag.read_messages(golden_bag, topics=["/stereo/left/image_raw/compressed"])][:3]
+    diffs = [float(np.abs(load_gray(os.path.join(out_dir, f"{i:06d}.jpg")) - decode_compressed_image(m)).mean())
+             for i, m in enumerate(images)]
+    check(sorted(os.listdir(out_dir)) == [f"{i:06d}.jpg" for i in range(3)] and max(diffs) < 2.0,
+          f"bag_extract files {sorted(os.listdir(out_dir))}, mean abs differences {diffs}")
+    parts.append(f"bag_extract: 3 images, mean abs difference to the bag's decoded frames {max(diffs):.2f} at most")
+    return "(d) " + " | ".join(parts) + f"; KITTI card launches {launches}", launches
+
+
+def condition_frames(name: str):
+    """tests/test_adversarial_conditions.py's rendered, degraded frames of
+    one condition: (rig, frames)."""
+    from vision_slam_frontend_tpu_torch.io.degrade import Degrader
+    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig, generate_sequence
+
+    spec = CONDITIONS[name]
+    deg = Degrader(**spec["degrader"])
+    contrast = spec.get("contrast", 1.0)
+    rig = SyntheticRig(**GOLDEN_RIG)
+    frames = []
+    for i, f in enumerate(generate_sequence(num_frames=CONDITION_FRAMES, rig=rig, odom_drift=0.015, seed=11,
+                                            **spec["seq"])):
+        left, right = deg(f.left, i, cam=0), deg(f.right, i, cam=1)
+        if contrast != 1.0:
+            left = 120.0 + contrast * (left - 120.0)
+            right = 120.0 + contrast * (right - 120.0)
+        frames.append((left, right, f.odom_translation, f.odom_rotation, f.timestamp, f.cam_pos.copy()))
+    return rig, frames
+
+
+def survival(name: str, family: str, rig, frames, dev) -> tuple[dict, list[str]]:
+    """test_condition_survival's run and assertions on the card."""
+    from vision_slam_frontend_tpu_torch.backend import BASolverConfig, ate_rmse, build_ba_problem, optimize
+    from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
+    from vision_slam_frontend_tpu_torch.frontend import Frontend, FrontendConfig
+
+    config = FrontendConfig(calib=rig.calib(), max_features=256, frame_life=8, fast_threshold=8.0,
+                            descriptor_family=family)
+    fe = Frontend(config, device=dev)
+    gt = []
+    for left, right, odom_t, odom_q, t, cam_pos in frames:
+        fe.observe_odometry(odom_t, odom_q, t)
+        if fe.observe_image(left, right, t):
+            gt.append(cam_pos)
+    r = dict(poses=fe.get_num_poses(), features_mean=fe.stats_summary()["features_mean"])
+    failures = []
+    if r["poses"] < CONDITION_FRAMES - 6:
+        failures.append(f"{r['poses']} poses")
+    if not r["features_mean"] > 25:
+        failures.append(f"features_mean {r['features_mean']}")
+    ba = build_ba_problem(fe.get_slam_problem(), left_cam_to_robot=np.asarray(config.left_cam_to_robot),
+                          min_track_length=2, device=dev)
+    r["landmarks"] = int(ba.landmark_mask.sum())
+    if r["landmarks"] < 20:
+        return r, failures + ["almost no landmarks survived"]
+    opt, info = optimize(ba, cam=CameraParams.from_config(config, device=dev),
+                         solver=BASolverConfig(max_iterations=10, trim_threshold=8.0))
+    gt = np.stack(gt)
+    r["ate_odom"] = ate_rmse(ba.poses_t.double().cpu().numpy(), gt, align=False)
+    r["ate_ba"] = ate_rmse(opt.poses_t.double().cpu().numpy(), gt, align=False)
+    if not np.isfinite(info["cost"]):
+        failures.append("non-finite BA cost")
+    if not r["ate_ba"] < max(2.0 * r["ate_odom"], 0.25):
+        failures.append(f"BA ATE {r['ate_ba']:.4f} >= max(2 x odometry {r['ate_odom']:.4f}, 0.25)")
+    return r, failures
+
+
+def phase_conditions(ck, dev, card: str) -> tuple[dict, dict]:
+    """(e): the 6x5 survival matrix of tests/test_adversarial_conditions.py
+    on the card. Returns (readings, launches)."""
+    readings, failed = {}, []
+    ck.reset_launch_counts()
+    for name in sorted(CONDITIONS):
+        t0 = time.perf_counter()
+        rig, frames = condition_frames(name)
+        render_s = time.perf_counter() - t0
+        cells = []
+        for family in CONDITION_FAMILIES:
+            t1 = time.perf_counter()
+            r, failures = survival(name, family, rig, frames, dev)
+            r["seconds"] = time.perf_counter() - t1
+            readings[f"{name}/{family}"] = r
+            failed += [f"{name}/{family}: {m}" for m in failures]
+            cells.append(f"{family} {r['poses']} poses, features {r['features_mean']:.1f}, landmarks {r['landmarks']}"
+                         + (f", ATE {r['ate_odom']:.3f} -> {r['ate_ba']:.3f}" if "ate_ba" in r else "")
+                         + (" ok" if not failures else " FAILED: " + "; ".join(failures)) + f" ({r['seconds']:.1f} s)")
+        say("10 inputs", f"(e) [{card}] {name} (rendered and degraded in {render_s:.1f} s): " + "; ".join(cells))
+    launches = dict(ck.LAUNCHES)
+    check(not failed, "survival matrix failed: " + "; ".join(failed))
+    check_launches("survival matrix", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
+                   absent=("patch_windows",))
+    say("10 inputs", f"(e) survival matrix: {len(readings)} of {len(CONDITIONS) * len(CONDITION_FAMILIES)} cells "
+        f"passed; launches {launches}")
+    return readings, launches
+
+
+def phase_inputs(ck, dev, card: str) -> tuple[dict, dict]:
+    """Phase 10: the decode route, the degraded-bag golden pins, the bag
+    rate, KITTI, EuRoC and the exports, the survival matrix. Returns
+    (numbers, {path: launches})."""
+    from vision_slam_frontend_tpu_torch.io import image, native_loader
+
+    route = CARD_DECODE_ROUTE
+    taken = image.decode_route()
+    check(taken == route, f"JPEG decode route {taken!r}, but the card's machine was probed to decode with {route!r}")
+    why = native_loader.unavailable_reason()
+    build = ("native library unavailable: " + why if why else
+             f"native library built in {native_loader.build_seconds:.2f} s" if native_loader.build_seconds is not None
+             else "native library already built")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rate, rate_line = phase_bag_rate(dev, tmp, card)
+        say("10 inputs", f"(a) JPEG decode route {taken} (as probed); {build}; host decode of one 640x480 "
+            f"JPEG pair {rate['decode_first_pair_ms']:.2f} ms (the first), {rate['decode_pair_ms']:.2f} ms (median)")
+        golden, launches["bag_golden_orb"], bag = phase_bag_golden(ck, dev, tmp, route, card)
+        say("10 inputs", rate_line)
+        line, launches["datasets_kitti"] = phase_datasets(ck, dev, tmp, bag)
+        say("10 inputs", line)
+    conditions, launches["survival_matrix"] = phase_conditions(ck, dev, card)
+    return {"decode_route": taken, "native": build, "bag_golden": golden, "bag_rate": rate,
+            "survival_matrix": conditions}, launches
+
 
 def main() -> int:
     try:
@@ -1752,7 +2268,11 @@ def main() -> int:
     line, per_path["validate_cli"] = phase_validate(ck, dev, tmp_dir.name)
     say("9 golden", line)
     tmp_dir.cleanup()
-    say("9 golden", f"whole run {time.perf_counter() - t_start:.1f} s")
+    say("9 golden", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    inputs, input_paths = phase_inputs(ck, dev, smi)
+    per_path.update(input_paths)
+    say("10 inputs", f"whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
     print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
@@ -1760,7 +2280,7 @@ def main() -> int:
                                 for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
                       "launch_floor_ms": floor_ms,
                       "launches_per_path": per_path, "ba": ba_numbers, "local_ba": lba_numbers,
-                      "golden_loop": golden}), flush=True)
+                      "golden_loop": golden, "inputs": inputs}), flush=True)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])

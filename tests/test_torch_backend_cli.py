@@ -131,8 +131,7 @@ def test_backend_cli_refuses_what_is_not_ported(frontend_npz, tmp_path):
     from vision_slam_frontend_tpu_torch.cli import slam_backend
 
     base = ["--input", frontend_npz, "--output", str(tmp_path / "o.npz"), "--device", "cpu"]
-    for extra, match in ((["--schur_solver", "segments"], "A13"), (["--devices", "2"], "A13"),
-                         (["--ply", str(tmp_path / "m.ply")], "viz")):
+    for extra, match in ((["--schur_solver", "segments"], "A13"), (["--devices", "2"], "A13")):
         with pytest.raises(NotImplementedError, match=match):
             slam_backend.main(base + extra)
     assert slam_backend.main(["--input", str(tmp_path / "missing.npz"), "--output", "x", "--device", "cpu"]) == 1

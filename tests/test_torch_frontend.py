@@ -125,8 +125,8 @@ def test_cli_synthetic_on_cpu(tmp_path, capsys):
 
 
 def test_cli_refuses_inputs_and_devices_it_cannot_serve(tmp_path):
-    with pytest.raises(NotImplementedError, match="bag, KITTI and EuRoC"):
-        cli.main(["--input", "run.bag", "--output", str(tmp_path / "p.npz"), "--device", "cpu"])
+    with pytest.raises(ValueError, match="Cannot auto-detect dataset type"):
+        cli.main(["--input", "run.txt", "--output", str(tmp_path / "p.npz"), "--device", "cpu"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device is available"):

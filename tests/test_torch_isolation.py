@@ -1,8 +1,9 @@
-"""The port stands alone: with `jax` and the JAX package made unimportable,
-every module of `vision_slam_frontend_tpu_torch` and `chip_smoke.py` still
-imports; and the port's own copies of the synthetic world, the BA problem
-generators and the host quaternion helpers give the JAX package's arrays
-exactly.
+"""The port stands alone: with `jax`, `yaml` and the JAX package made
+unimportable, every module of `vision_slam_frontend_tpu_torch` and
+`chip_smoke.py` still imports, and a config round trip and an EuRoC
+calibration run; and the port's own copies of the synthetic world, the BA
+problem generators and the host quaternion helpers give the JAX package's
+arrays exactly.
 """
 
 import pkgutil
@@ -26,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _BLOCKED_IMPORT = r'''
 import importlib, importlib.abc, runpy, sys
 
-BLOCKED = ("jax", "jaxlib", "vision_slam_frontend_tpu")
+BLOCKED = ("jax", "jaxlib", "vision_slam_frontend_tpu", "yaml")
 
 
 class Blocker(importlib.abc.MetaPathFinder):
@@ -38,7 +39,9 @@ class Blocker(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, Blocker())
 for name in sys.argv[1:]:
-    if name.endswith(".py"):
+    if name.startswith("exec:"):
+        exec(name[5:])
+    elif name.endswith(".py"):
         runpy.run_path(name, run_name="not_main")
     else:
         importlib.import_module(name)
@@ -65,7 +68,12 @@ def test_port_and_chip_smoke_import_without_jax():
             "vision_slam_frontend_tpu_torch.utils.device", "vision_slam_frontend_tpu_torch.backend.local_ba",
             "vision_slam_frontend_tpu_torch.backend.merge", "vision_slam_frontend_tpu_torch.cli.slam_merge",
             "vision_slam_frontend_tpu_torch.backend.dense_plateau", "vision_slam_frontend_tpu_torch.ops.sift",
-            "vision_slam_frontend_tpu_torch.frontend.frontend"} <= set(modules)
+            "vision_slam_frontend_tpu_torch.frontend.frontend", "vision_slam_frontend_tpu_torch.io.rosbag",
+            "vision_slam_frontend_tpu_torch.io.ros_msgs", "vision_slam_frontend_tpu_torch.io.image",
+            "vision_slam_frontend_tpu_torch.io.native_loader", "vision_slam_frontend_tpu_torch.io.degrade",
+            "vision_slam_frontend_tpu_torch.io.kitti", "vision_slam_frontend_tpu_torch.io.euroc",
+            "vision_slam_frontend_tpu_torch.cli.bag_extract", "vision_slam_frontend_tpu_torch.viz.ply",
+            "vision_slam_frontend_tpu_torch.viz.html", "vision_slam_frontend_tpu_torch.utils.yaml_subset"} <= set(modules)
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, *modules, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
@@ -74,10 +82,39 @@ def test_port_and_chip_smoke_import_without_jax():
     assert f"imported {len(modules) + 1}" in proc.stdout
 
 
+def test_config_and_euroc_calibration_need_no_yaml(tmp_path):
+    """With PyYAML blocked: FrontendConfig.save then load gives the same
+    config, and euroc_calib reads a written sensor.yaml."""
+    from tests.test_torch_io import _euroc_sensor_dirs
+
+    root = tmp_path / "euroc"
+    _euroc_sensor_dirs(str(root), 3)
+    code = (
+        "from vision_slam_frontend_tpu_torch.frontend.config import FrontendConfig\n"
+        "from vision_slam_frontend_tpu_torch.io.euroc import euroc_calib\n"
+        f"calib = euroc_calib({str(root)!r})\n"
+        "c = FrontendConfig(calib=calib, descriptor_family='sift', max_features=300, validate=True)\n"
+        f"c.save({str(tmp_path / 'c.yaml')!r})\n"
+        f"d = FrontendConfig.load({str(tmp_path / 'c.yaml')!r})\n"
+        "assert d.calib == calib and (d.descriptor_family, d.max_features, d.validate) == ('sift', 300, True)\n"
+        "assert (d.fundamental == c.fundamental).all()\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, "exec:" + code],
+                          capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "imported 1" in proc.stdout
+
+
 def test_blocker_does_block():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, "vision_slam_frontend_tpu.io.synthetic"],
                           capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert proc.returncode != 0 and "blocked import of vision_slam_frontend_tpu" in proc.stderr
+
+
+def test_blocker_blocks_yaml():
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, "yaml"],
+                          capture_output=True, text=True, cwd=ROOT, timeout=300)
+    assert proc.returncode != 0 and "blocked import of yaml" in proc.stderr
 
 
 @pytest.mark.parametrize("seed", [0, 5])

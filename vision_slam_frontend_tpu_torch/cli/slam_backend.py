@@ -7,12 +7,12 @@ or PCG Schur solve, and writes the optimized problem + landmark cloud.
 
 Usage:
   python -m vision_slam_frontend_tpu_torch.cli.slam_backend \
-      --input problem.npz --output solved.npz [--device cuda] [--verbose]
+      --input problem.npz --output solved.npz [--ply map.ply] [--device cuda] [--verbose]
 
 The device defaults to `cuda` and the run fails where there is no GPU;
 `--device cpu` runs on the CPU. The JAX package's segment-parallel solver
-(`--schur_solver segments`), multi-device sharding (`--devices > 1`) and PLY
-export (`--ply`) are not ported.
+(`--schur_solver segments`) and multi-device sharding (`--devices > 1`) are
+not ported.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--input", required=True, help="SLAM problem npz (from slam_frontend)")
     p.add_argument("--output", required=True, help="optimized problem npz")
-    p.add_argument("--ply", default=None, help="optimized pose-graph + landmark PLY (not ported)")
+    p.add_argument("--ply", default=None, help="optimized pose-graph + landmark PLY")
     p.add_argument("--config", default=None, help="YAML config (else calib embedded in input)")
     p.add_argument("--max_iterations", type=int, default=15)
     p.add_argument("--huber_delta", type=float, default=4.0)
@@ -91,9 +91,6 @@ def main(argv=None) -> int:
         )
     if args.devices > 1:
         raise NotImplementedError(f"--devices {args.devices}: multi-GPU BA is not ported yet (ROADMAP A13)")
-    if args.ply:
-        raise NotImplementedError("--ply: PLY export is not ported yet (the viz slice, ROADMAP A8)")
-
     from vision_slam_frontend_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -156,10 +153,10 @@ def main(argv=None) -> int:
         f"{info['iterations']} LM iterations ({elapsed:.2f}s, "
         f"{info['trimmed']} observations trimmed)"
     )
-    return _write_output(args, problem, opt, info, data)
+    return _write_output(args, problem, opt, info, data, cam_to_robot)
 
 
-def _write_output(args, problem, opt, info, data) -> int:
+def _write_output(args, problem, opt, info, data, cam_to_robot) -> int:
     """Write the optimized problem: the original structure with updated
     poses, plus the optimized landmark cloud and the cost history."""
     from vision_slam_frontend_tpu_torch.io.serialize import problem_to_arrays
@@ -177,6 +174,10 @@ def _write_output(args, problem, opt, info, data) -> int:
             out[key] = data[key]
     np.savez_compressed(args.output, **out)
     print(f"Wrote {args.output}")
+    if args.ply:
+        from vision_slam_frontend_tpu_torch.viz.ply import export_ply
+
+        print(f"Wrote {args.ply}: {export_ply(args.ply, problem, cam_to_robot)}")
     return 0
 
 

@@ -2,14 +2,28 @@
 
 Usage:
   python -m vision_slam_frontend_tpu_torch.cli.slam_frontend \
-      --input synthetic:20 --output /tmp/problem.npz [--device cuda] \
+      --input path/to.bag|KITTI_SEQ_DIR|EUROC_DIR|synthetic:20 \
+      --output /tmp/problem.npz [--device cuda] [--config rig.yaml] \
+      [--dataset auto|bag|kitti|euroc|synthetic] [--sequence 00] \
+      [--left_image_topic T] [--right_image_topic T] [--odom_topic T] \
+      [--no_prefetch] [--output_bag out.bag] [--ply map.ply] [--html map.html] \
       [--descriptor_family orb|brisk|freak|akaze|sift] [--local_ba 8] \
       [--checkpoint_every N] [--resume CKPT] [--interrupt_after N] \
       [--validate] [-v 2]
 
-Only the synthetic input (`synthetic[:N[:step]]`) is ported; bag, KITTI and
-EuRoC inputs are not yet. The device defaults to `cuda`, where the step runs
-the hand-written kernels; `--device cpu` runs their plain PyTorch versions.
+Inputs: a ROS1 bag (stereo sensor_msgs/CompressedImage topics paired by equal
+stamps, nav_msgs/Odometry; read by the native C++ scanner where it is built,
+`VSF_DISABLE_NATIVE=1` to use the Python reader), a KITTI odometry sequence,
+an EuRoC ASL directory, or the synthetic world (`synthetic[:N[:step]]`);
+auto-detected, or named by `--dataset`. `--config` loads a YAML config and
+calibration (the JAX package's `FrontendConfig.save` format); without it
+the calibration comes from the dataset (KITTI calib.txt, EuRoC sensor.yaml,
+the synthetic rig) or the default rig. Bag, KITTI and EuRoC events are read
+and decoded on a producer thread ahead of the frontend (`--no_prefetch`
+turns that off); `-v 1` prints the JPEG or image decoder taken.
+
+The device defaults to `cuda`, where the step runs the hand-written kernels;
+`--device cpu` runs their plain PyTorch versions.
 `--local_ba N` bundle-adjusts the last N keyframes after each new keyframe,
 pipelined one keyframe deep (backend/local_ba.py); `-v 2` logs each applied
 solve. The run ends with a frame-latency line (percentiles over every stereo
@@ -23,14 +37,21 @@ SIGINT stops the run after the current frame and writes the partial problem
 and a checkpoint, then exits with 130; a second SIGINT aborts.
 `--interrupt_after N` raises that SIGINT after N stereo frames. `--validate`
 checks every keyframe's outputs (utils/checks.py) as it is fetched.
+`--output_bag` also writes the reference-format ROS bag (extrinsics,
+intrinsics, slam_problem topics), `--ply` a pose-graph + landmark PLY and
+`--html` a standalone viewer.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import os
+import queue
 import signal
 import sys
+import threading
 import time
 
 import numpy as np
@@ -50,6 +71,177 @@ def iter_synthetic(spec: str):
     for f in generate_sequence(num_frames=n, step=step, rig=SyntheticRig()):
         yield ("odometry", f.timestamp, (f.odom_translation, f.odom_rotation))
         yield ("stereo", f.timestamp, (f.left, f.right))
+
+
+def _bag_messages(path: str, topics, verbosity: int):
+    """Parsed bag messages in file order: through the native C++ scanner
+    where it is built and indexes records (not with VSF_DISABLE_NATIVE=1),
+    else the pure-Python reader."""
+    from vision_slam_frontend_tpu_torch.io import native_loader, rosbag
+
+    if os.environ.get("VSF_DISABLE_NATIVE") != "1" and native_loader.native_available():
+        try:
+            reader = native_loader.NativeBagReader(path)
+        except ValueError:
+            reader = None
+        if reader is not None:
+            with reader:
+                if len(reader) > 0:
+                    if verbosity > 0:
+                        print(f"[native] C++ bag scanner: {len(reader)} records")
+                    type_by_topic = {t: ty for t, ty in reader.connections.values()}
+                    for topic, t_ns, raw in reader.read_messages(topics=list(topics)):
+                        parser = rosbag.DESERIALIZERS.get(type_by_topic.get(topic, ""))
+                        yield topic, t_ns, (parser(raw) if parser else {"raw": raw})
+                    return
+    yield from rosbag.read_messages(path, topics=list(topics))
+
+
+def iter_bag(path: str, left_topic: str, right_topic: str, odom_topic: str, verbosity: int):
+    """(kind, timestamp, payload) events of a ROS1 bag: odometry as it comes,
+    and a stereo pair when a right image carries the stamp of the pending
+    left one (the reference pairs by equal stamps; unpaired images are
+    skipped)."""
+    from vision_slam_frontend_tpu_torch.io.image import decode_compressed_image
+
+    pending_left = None  # (stamp_ns, image message)
+    for topic, t_ns, msg in _bag_messages(path, [left_topic, right_topic, odom_topic], verbosity):
+        if topic == odom_topic:
+            if verbosity > 1:
+                print(f"Odometry t={t_ns * 1e-9:.6f}")
+            yield ("odometry", t_ns * 1e-9, (msg["position"], msg["orientation_wxyz"]))
+        elif topic == left_topic:
+            pending_left = (msg["stamp_ns"], msg)
+        elif topic == right_topic:
+            if pending_left is None or pending_left[0] != msg["stamp_ns"]:
+                continue
+            t = msg["stamp_ns"] * 1e-9
+            if verbosity > 1:
+                print(f"CompressedImage t={t:.6f}")
+            left = decode_compressed_image(pending_left[1])
+            right = decode_compressed_image(msg)
+            pending_left = None
+            yield ("stereo", t, (left, right))
+
+
+def prefetch_events(events, depth: int = 16):
+    """Decode ahead: run the event source (file reads, JPEG or PNG decode) on
+    a producer thread feeding a bounded queue, so the host work of frame
+    k + 1 overlaps frame k's step. The decoders and file reads release the
+    GIL. The images stay host arrays: Frontend uploads them.
+
+    If the consumer stops early (SIGINT, --max_poses, close()), its finally
+    sets `stop`; the producer's bounded put polls it, so the thread exits
+    instead of blocking on a full queue. An exception in the producer is
+    raised in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in events:
+                if stop.is_set() or not put(item):
+                    return
+            put(done)
+        except BaseException as e:  # handed to the consumer, which raises it
+            put(e)
+        finally:
+            if hasattr(events, "close"):
+                events.close()  # releases the source's files now, not at garbage collection
+
+    threading.Thread(target=producer, daemon=True, name="vsf-prefetch").start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def detect_dataset(input_spec: str) -> str:
+    if input_spec.startswith("synthetic"):
+        return "synthetic"
+    if input_spec.endswith(".bag"):
+        return "bag"
+    if os.path.isdir(input_spec):
+        if os.path.isdir(os.path.join(input_spec, "mav0")):
+            return "euroc"
+        if os.path.isdir(os.path.join(input_spec, "image_0")) or os.path.isdir(os.path.join(input_spec, "image_00")):
+            return "kitti"
+    raise ValueError(f"Cannot auto-detect dataset type of {input_spec!r}; pass --dataset")
+
+
+def make_config(args, dataset: str):
+    """The run's FrontendConfig: --config, else the dataset's calibration;
+    the CLI's overrides on top."""
+    from vision_slam_frontend_tpu_torch.frontend import FrontendConfig
+
+    overrides = {}
+    if args.max_features is not None:
+        overrides["max_features"] = args.max_features
+    if args.frame_life is not None:
+        overrides["frame_life"] = args.frame_life
+    if args.descriptor_family is not None:
+        overrides["descriptor_family"] = args.descriptor_family
+    if args.validate:
+        overrides["validate"] = True
+    if args.config:
+        return dataclasses.replace(FrontendConfig.load(args.config), **overrides)
+    if dataset == "synthetic":
+        from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
+
+        return FrontendConfig(calib=SyntheticRig().calib(), fast_threshold=12.0, **overrides)
+    if dataset == "kitti":
+        from vision_slam_frontend_tpu_torch.io.kitti import kitti_calib
+
+        return FrontendConfig(calib=kitti_calib(args.input, args.sequence), **overrides)
+    if dataset == "euroc":
+        from vision_slam_frontend_tpu_torch.io.euroc import euroc_calib
+
+        return FrontendConfig(calib=euroc_calib(args.input), **overrides)
+    return FrontendConfig(**overrides)
+
+
+def make_events(args, dataset: str):
+    """The run's (kind, timestamp, payload) events, decoded ahead on a
+    producer thread unless --no_prefetch or synthetic."""
+    if dataset == "synthetic":
+        return iter_synthetic(args.input)
+    from vision_slam_frontend_tpu_torch.io import image, native_loader
+
+    if args.verbosity > 0:
+        if dataset == "bag":
+            route = image.decode_route()
+            why = native_loader.unavailable_reason()
+            print(f"[decode] {route}" + (f" (native libjpeg unavailable: {why})" if why else ""))
+        else:
+            print(f"[decode] {image.decode_route(native=False)}")
+    if dataset == "bag":
+        events = iter_bag(args.input, args.left_image_topic, args.right_image_topic, args.odom_topic,
+                          args.verbosity)
+    elif dataset == "kitti":
+        from vision_slam_frontend_tpu_torch.io.kitti import iter_kitti_events
+
+        events = iter_kitti_events(args.input, args.sequence)
+    else:
+        from vision_slam_frontend_tpu_torch.io.euroc import iter_euroc_events
+
+        events = iter_euroc_events(args.input)
+    return events if args.no_prefetch else prefetch_events(events)
 
 
 def _apply_local_ba(frontend, state, ba_live, verbosity: int) -> None:
@@ -103,8 +295,24 @@ def build_parser() -> argparse.ArgumentParser:
         prog="slam_frontend_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    p.add_argument("--input", required=True, help="synthetic[:N[:step]]")
+    p.add_argument("--input", required=True, help="bag file / KITTI or EuRoC directory / synthetic[:N[:step]]")
     p.add_argument("--output", required=True, help="output SLAM problem (.npz)")
+    p.add_argument("--dataset", choices=["auto", "bag", "kitti", "euroc", "synthetic"], default="auto")
+    p.add_argument("--sequence", default=None, help="KITTI sequence id (e.g. 00)")
+    p.add_argument("--config", default=None, help="YAML config/calibration path")
+    p.add_argument("--left_image_topic", default="/stereo/left/image_raw/compressed")
+    p.add_argument("--right_image_topic", default="/stereo/right/image_raw/compressed")
+    p.add_argument("--odom_topic", default="/odometry/filtered")
+    p.add_argument(
+        "--no_prefetch", action="store_true",
+        help="read and decode bag, KITTI and EuRoC frames on the main thread (no decode-ahead thread)",
+    )
+    p.add_argument(
+        "--output_bag", default=None,
+        help="also write a reference-format ROS bag (extrinsics/intrinsics/slam_problem topics)",
+    )
+    p.add_argument("--ply", default=None, help="also export a pose-graph + landmark PLY here")
+    p.add_argument("--html", default=None, help="also export a standalone interactive HTML viewer here")
     p.add_argument("--max_poses", type=int, default=0, help="stop after this many SLAM poses (0 = all)")
     p.add_argument("--max_features", type=int, default=None, help="override feature capacity K")
     p.add_argument("--frame_life", type=int, default=None, help="override temporal window W")
@@ -139,26 +347,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not args.input.startswith("synthetic"):
-        raise NotImplementedError(
-            f"input {args.input!r}: only synthetic[:N[:step]] is ported; "
-            "bag, KITTI and EuRoC inputs are not ported yet"
-        )
+    dataset = args.dataset if args.dataset != "auto" else detect_dataset(args.input)
     device = resolve_device(args.device)
 
-    from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
-    from vision_slam_frontend_tpu_torch.frontend import Frontend, FrontendConfig
+    from vision_slam_frontend_tpu_torch.frontend import Frontend
 
-    overrides = {}
-    if args.max_features is not None:
-        overrides["max_features"] = args.max_features
-    if args.frame_life is not None:
-        overrides["frame_life"] = args.frame_life
-    if args.descriptor_family is not None:
-        overrides["descriptor_family"] = args.descriptor_family
-    if args.validate:
-        overrides["validate"] = True
-    config = FrontendConfig(calib=SyntheticRig().calib(), fast_threshold=12.0, **overrides)
+    config = make_config(args, dataset)
+    events = make_events(args, dataset)
     frontend = Frontend(config, device=device)
     frontend.verbosity = args.verbosity
     resume_t = -float("inf")
@@ -189,17 +384,28 @@ def main(argv=None) -> int:
     except ValueError:  # not the main thread: no handler
         prev_sigint, installed = None, False
     try:
-        return _run(args, device, config, frontend, resume_t, ckpt_path, lambda: interrupted)
+        return _run(args, dataset, device, config, frontend, events, resume_t, ckpt_path, lambda: interrupted)
     finally:
+        if hasattr(events, "close"):
+            events.close()  # stops a decode-ahead thread
         if installed:
             signal.signal(signal.SIGINT, prev_sigint or signal.SIG_DFL)
 
 
-def _run(args, device, config, frontend, resume_t: float, ckpt_path: str, interrupted) -> int:
+def _run(args, dataset, device, config, frontend, events, resume_t: float, ckpt_path: str, interrupted) -> int:
     """The CLI's event loop and epilogue; `interrupted()` reads the SIGINT
-    flag. Returns the exit code (130 after an interrupt)."""
+    flag. Returns the exit code (130 after an interrupt, 1 when the input
+    cannot be read)."""
     from vision_slam_frontend_tpu_torch.io.serialize import save_problem
 
+    try:
+        first = next(events, None)
+    except (FileNotFoundError, ValueError) as e:
+        print(f"Unable to read {args.input}, reason:\n {e}")
+        return 1
+    if first is None:
+        print(f"Unable to read {args.input}, reason:\n no events found")
+        return 1
     print(f"Processing {args.input} on {device}")
     t_start = time.perf_counter()
     frames_seen = 0
@@ -210,7 +416,7 @@ def _run(args, device, config, frontend, resume_t: float, ckpt_path: str, interr
     steady_from = None  # (time, frames, keyframes) when the first local-BA dispatch returned
     local_ba = LocalBAState() if args.local_ba > 0 else None  # this Frontend's in-flight solve
     ba_live = None  # the SLAMProblem whose nodes the in-flight solve updates
-    for kind, t, payload in iter_synthetic(args.input):
+    for kind, t, payload in itertools.chain([first], events):
         if interrupted():
             break
         if t <= resume_t:
@@ -261,7 +467,7 @@ def _run(args, device, config, frontend, resume_t: float, ckpt_path: str, interr
     problem = frontend.get_slam_problem()  # waits for the last keyframe
     t_end = time.perf_counter()
     elapsed = t_end - t_start
-    print("Done processing input.")
+    print("Done processing bag file." if dataset == "bag" else "Done processing input.")
 
     save_problem(args.output, problem, config=config, node_track_ids=frontend.node_track_ids)
     print(problem.summary())
@@ -284,6 +490,19 @@ def _run(args, device, config, frontend, resume_t: float, ckpt_path: str, interr
         )
     if args.verbosity > 0 and frontend.stats_summary():
         print(f"[stats] {frontend.stats_summary()}")
+    if args.output_bag:
+        from vision_slam_frontend_tpu_torch.io.ros_msgs import write_output_bag
+
+        write_output_bag(args.output_bag, problem, config)
+        print(f"Wrote reference-format bag {args.output_bag}")
+    if args.ply:
+        from vision_slam_frontend_tpu_torch.viz.ply import export_ply
+
+        print(f"Wrote {args.ply}: {export_ply(args.ply, problem, config.left_cam_to_robot)}")
+    if args.html:
+        from vision_slam_frontend_tpu_torch.viz.html import export_html
+
+        print(f"Wrote {args.html}: {export_html(args.html, problem, config.left_cam_to_robot)}")
     return 130 if interrupted() else 0  # 130: interrupted, by convention
 
 

@@ -9,10 +9,10 @@ Usage:
   python -m vision_slam_frontend_tpu_torch.cli.slam_merge \\
       --inputs a.npz b.npz --output merged.npz [--device cuda] \\
       [--transforms "0,0,0,1,0,0,0;1.5,0,2.0,1,0,0,0"]  # tx,ty,tz,qw,qx,qy,qz per session
-      [--assoc_radius 0.3]
+      [--assoc_radius 0.3] [--ply merged.ply]
 
 The device defaults to `cuda` and the run fails where there is no GPU;
-`--device cpu` runs on the CPU. PLY export (`--ply`) is not ported.
+`--device cpu` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_iterations", type=int, default=10)
     p.add_argument("--huber_delta", type=float, default=4.0)
     p.add_argument("--trim_threshold", type=float, default=8.0)
-    p.add_argument("--ply", default=None, help="merged pose-graph + landmark PLY (not ported)")
+    p.add_argument("--ply", default=None, help="merged pose-graph + landmark PLY")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--verbose", action="store_true")
     return p
@@ -59,8 +59,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.ply:
-        raise NotImplementedError("--ply: PLY export is not ported yet (the viz slice, ROADMAP A8)")
     if len(args.inputs) < 2:
         print("Need at least two --inputs sessions")
         return 1
@@ -126,6 +124,10 @@ def main(argv=None) -> int:
             out[key] = data0[key]
     np.savez_compressed(args.output, **out)
     print(f"Wrote {args.output}")
+    if args.ply:
+        from vision_slam_frontend_tpu_torch.viz.ply import export_ply
+
+        print(f"Wrote {args.ply}: {export_ply(args.ply, merged, ext)}")
     return 0
 
 

@@ -2,8 +2,10 @@
 
 Same fields, defaults and derived matrices as the JAX package's
 FrontendConfig, computed with numpy, so the port runs where JAX is not
-installed. Debug images are not ported yet: asking for them raises
-NotImplementedError.
+installed. `load` and `save` read and write the JAX package's YAML through
+utils/yaml_subset.py, so they need no PyYAML: a config saved by either
+package loads in the other. Debug images are not ported yet: asking for them
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from vision_slam_frontend_tpu_torch.geometry.camera import (
     fundamental_from_stereo,
 )
 from vision_slam_frontend_tpu_torch.ops.descriptors import get_family
+from vision_slam_frontend_tpu_torch.utils import yaml_subset
 
 # Campus-Jackal Point Grey rig (the JAX package's DEFAULT_CALIB).
 DEFAULT_CALIB = {
@@ -112,10 +115,7 @@ class FrontendConfig:
     @classmethod
     def load(cls, path: str) -> "FrontendConfig":
         """Load config + calibration from YAML; missing keys keep defaults."""
-        import yaml
-
-        with open(path) as f:
-            data = yaml.safe_load(f) or {}
+        data = yaml_subset.load(path) or {}
         calib = data.pop("calib", None) or copy.deepcopy(DEFAULT_CALIB)
         fields = {f.name for f in dataclasses.fields(cls) if f.init}
         known = {k: v for k, v in data.items() if k in fields}
@@ -123,3 +123,10 @@ class FrontendConfig:
         if unknown:
             raise ValueError(f"Unknown config keys: {sorted(unknown)}")
         return cls(calib=calib, **known)
+
+    def save(self, path: str) -> None:
+        """Write every field and the calibration as YAML (the bytes
+        `yaml.safe_dump` writes for the JAX package's config)."""
+        data = {f.name: getattr(self, f.name) for f in dataclasses.fields(self) if f.init and f.name != "calib"}
+        data["calib"] = self.calib
+        yaml_subset.dump(data, path)
