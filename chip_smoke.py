@@ -118,9 +118,30 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               inputs, card against CPU, and bag_extract; (e) the 6x5
               survival matrix of tests/test_adversarial_conditions.py on the
               card, against a copy of its CONDITIONS
+ 11. parallel the parallel/ package (plain torch, no kernel): (a) segment BA
+              on tests/test_segment_ba.py's fixture (P=128, L=2048, n_seg 4,
+              sweeps 4) on the card and on the CPU: final cost, poses, a
+              monotone history, within 2% of the joint optimize; (b) segments
+              at the BA benchmark shape (phase 7's P=500, L=100k, clean; n_seg
+              8, sweeps 2, polish 3): cost and ATE beside phase 7's, held to
+              tests/test_ba_scale_accuracy.py's ATE check, seconds per sweep,
+              one level-A iteration's synced and enqueue ms, launches and
+              device ms, peak memory, and whether a segment's LM met four
+              rejections in a row; (c) past the dense ceiling (P=4096,
+              L=100k, drifting): segments against the joint solve under auto
+              (PCG), held to tests/test_segment_ba.py's two checks; (d) on the
+              one card: two processes over gloo with CUDA tensors on cuda:0
+              and a world-size-1 NCCL group, each running observation-sharded
+              PCG, landmark-sharded dense and sharded segments on phase 7
+              (a)'s problem, held to the single-process runs, each mode's
+              collective calls and bytes per LM iteration equal to
+              comm_report's analytic count, and `slam_backend --devices 2`
+              refused ("needs 2 CUDA devices, found 1"); (e) the slam_backend
+              CLI with --schur_solver segments on phase 5's synthetic:20 npz,
+              card against CPU
 Then a JSON line of every kernel shape's numbers and the BA, local-BA,
-golden-loop and input numbers, the kernels JSON line and, last, the result
-line.
+golden-loop, input and parallel numbers, the kernels JSON line and, last,
+the result line.
 """
 
 from __future__ import annotations
@@ -195,6 +216,46 @@ LBA_SOAK_FRAMES = (15, 30)
 LBA_TEXTURED_FEATURES = 100
 LBA_TIMING_KEYFRAMES = 20
 MERGE_SESSION_B = "synthetic:12:0.3"
+
+# Phase 11 (parallel). (a) tests/test_segment_ba.py's fixture and checks: the
+# card's run against the CPU's (its unsharded-vs-sharded tolerances, cost and
+# poses) and the joint optimum (2%). (b) segments at phase 7's benchmark shape
+# (monocular): finite, monotone and below the initial cost, its ATE reported
+# beside tests/test_ba_scale_accuracy.py's PCG limit and beside the JAX
+# package's own segment solver on this problem, which misses that limit too
+# (SEG_SCALE_REFERENCE, `python torch_segment_cases.py benchmark 500 100000 jax`
+# on the CPU; no jax on the card's machine; ROADMAP C). (c) that test's
+# beyond-the-ceiling trajectory at P=4096: finite, monotone and below 0.01 of
+# the initial cost (its first check); its second, below twice the ground
+# truth's cost, reported (missed at this size: ROADMAP C). (d) the distributed modes on
+# phase 7 (a)'s problem over two processes: each mode's final cost within
+# DIST_PCG_RTOL (PCG) or DIST_SEG_RTOL (dense, segments) of the same mode run
+# in one process on a 2-shard in-process group, whose per-shard partials are
+# the ranks'; dense also within phase 7 (a)'s tolerances of the single-device
+# dense solve. PCG and segments are not held to the single-device solve here:
+# this problem is monocular, and float32 PCG at lambda 1e-3 on it is off the
+# float64 step by 100% after 32 CG iterations, so a reduction order moves the
+# LM path anywhere (on the CPU a 2-shard PCG run stopped at cost 1,421 after
+# four rejections where the single-device run reached 866); their
+# single-device costs are printed beside. Segments run without the PCG
+# polish there (the PCG mode runs that solve): level A's dense steps and level
+# B. The world-size-1 NCCL group: equal to a one-shard in-process group.
+SEG_WORLD = dict(P=128, L=2048, obs_per_lm=5, seed=3, stereo=True, pose_noise=0.08)
+SEG_ITERATIONS = 12
+SEG_COST_RTOL = 1e-2
+SEG_POSE_ATOL = 2e-3
+SEG_JOINT_RATIO = 1.02
+SEG_SCALE = dict(n_seg=8, sweeps=2, polish_iterations=3)
+SEG_SCALE_REFERENCE = dict(ate=0.7407, cost=2_093_805.4)
+LONG_WORLD = dict(P=4096, L=100_000, obs_per_lm=4, seed=7, stereo=True, pose_noise=0.01, pose_walk=0.02)
+LONG_SEGMENTS = dict(n_seg=8, sweeps=2, polish_iterations=2)
+LONG_ITERATIONS = 8
+DIST_RANKS = 2
+DIST_GROUPS = (("gloo", DIST_RANKS), ("nccl", 1))
+DIST_SEGMENTS = 4
+DIST_PCG_RTOL = 3e-4
+DIST_SEG_RTOL = 1e-2  # dense too
+DIST_TIMEOUT_S = 600
 
 # The H100's published peaks (NVIDIA data sheet, SXM, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -2170,6 +2231,404 @@ def phase_inputs(ck, dev, card: str) -> tuple[dict, dict]:
     return {"decode_route": taken, "native": build, "bag_golden": golden, "bag_rate": rate,
             "survival_matrix": conditions}, launches
 
+# ---------------------------------------------------------------------------
+# Phase 11: the parallel/ package
+# ---------------------------------------------------------------------------
+
+
+def monotone(history) -> bool:
+    return all(b <= a + 1e-6 for a, b in zip(history[:-1], history[1:]))
+
+
+def phase_segments_small(dev) -> str:
+    """(a): segment BA on the card and on the CPU, and the joint optimum."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+    from vision_slam_frontend_tpu_torch.parallel.segment_ba import optimize_segments
+
+    solver = BASolverConfig(max_iterations=SEG_ITERATIONS)
+    runs = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        cam, problem, _, _ = synthetic_ba_problem(**SEG_WORLD, device=device)
+        runs[where] = optimize_segments(problem, cam=cam, solver=solver, n_seg=4, sweeps=4)
+        if where == "card":
+            _, joint = optimize(problem, cam=cam, solver=solver)
+    (pg, ig), (pc, ic) = runs["card"], runs["cpu"]
+    rel = abs(ig["cost"] - ic["cost"]) / ic["cost"]
+    pose = max_abs_err(pg.poses_t.cpu(), pc.poses_t)
+    line = (f"(a) segments P={SEG_WORLD['P']} L={SEG_WORLD['L']} (n_seg 4, sweeps 4): card cost {ig['cost']:.4f} vs "
+            f"CPU {ic['cost']:.4f} (rel {rel:.2e}), poses max diff {pose:.2e}, joint optimize {joint['cost']:.4f} "
+            f"(ratio {ig['cost'] / joint['cost']:.4f}), histories monotone")
+    check(rel <= SEG_COST_RTOL and pose <= SEG_POSE_ATOL, f"{line}: beyond cost {SEG_COST_RTOL}, poses {SEG_POSE_ATOL}")
+    check(monotone(ig["history"]) and monotone(ic["history"]), f"{line}: a history rises")
+    check(ig["cost"] < SEG_JOINT_RATIO * joint["cost"] + 1e-6, f"{line}: beyond {SEG_JOINT_RATIO} of the joint cost")
+    return line
+
+
+def level_a_times(cam, problem, n_seg: int, reps: int) -> dict:
+    """One level-A iteration (every segment's dense step and cost) at lambda
+    1e-3: median synced and enqueue ms over `reps`, launches and device ms of
+    one profiled iteration (None where the profiler recorded none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_slam_frontend_tpu_torch.backend import ba
+    from vision_slam_frontend_tpu_torch.parallel.segment_ba import build_segments, fold_segments, level_a_iteration
+
+    stacked, _ = build_segments(problem, n_seg)
+    Ps = stacked.poses_t.shape[1]
+    folded = fold_segments(stacked, slice(0, n_seg), problem.device)
+    pm = ba._build_pm_inputs(folded)
+    plan = ba._dense_coupling_plan(folded, Ps)
+    lam = torch.full((n_seg,), 1e-3, device=problem.device)
+
+    def iteration():
+        return level_a_iteration(cam, folded, pm, plan, lam, n_seg, Ps, *ba_scalars(), True)[1]
+
+    iteration().cpu()  # warm-up
+    synced, enqueue = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        costs = iteration()
+        t1 = time.perf_counter()
+        costs.cpu()
+        synced.append((time.perf_counter() - t0) * 1e3)
+        enqueue.append((t1 - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        iteration().cpu()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    return dict(iteration_ms=statistics.median(synced), enqueue_ms=statistics.median(enqueue), launches=launches or None,
+                device_ms=sum(e.self_device_time_total for e in device) / 1e3 if device else None, Ps=int(Ps),
+                Ls=int(stacked.landmarks.shape[1]))
+
+
+def phase_segments_scale(dev, phase7: dict) -> tuple[dict, str]:
+    """(b): segments at the BA benchmark shape, beside phase 7's solves."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig
+    from vision_slam_frontend_tpu_torch.backend.metrics import ate_rmse
+    from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
+    from vision_slam_frontend_tpu_torch.io.synthetic import make_problem
+    from vision_slam_frontend_tpu_torch.parallel.segment_ba import optimize_segments
+
+    P, L, obs = BA_SCALE
+    problem, gt_t, _ = make_problem(P, L, obs, return_gt=True, clean=True, device=dev)
+    cam = CameraParams(fx=500.0, fy=500.0, cx=320.0, cy=240.0, R_cr=np.eye(3), t_cr=np.zeros(3)).to(dev)
+    init_ate = ate_rmse(problem.poses_t.cpu().numpy(), gt_t)
+    solver = BASolverConfig(max_iterations=BA_ITERATIONS, cg_iterations=BA_CG_ITERATIONS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt, info = optimize_segments(problem, cam=cam, solver=solver, **SEG_SCALE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ate = ate_rmse(opt.poses_t.cpu().numpy(), gt_t)
+    check(np.isfinite(info["cost"]) and info["cost"] < info["history"][0] and monotone(info["history"]),
+          f"segments at the benchmark shape: cost history {info['history']} not finite, falling and monotone")
+    pin = ate < BA_ATE_MAX["pcg"] and ate < init_ate / 2.5
+    times = level_a_times(cam, problem, SEG_SCALE["n_seg"], BA_REPS)
+    plateau = info["max_rejected_in_a_row"] >= 4
+    out = dict(cost=info["cost"], ate=ate, init_ate=init_ate, ate_pin_met=pin, seconds=seconds, peak_gib=peak, history=info["history"],
+               iterations=info["iterations"], sweep_seconds=info["sweep_seconds"],
+               max_rejected_in_a_row=info["max_rejected_in_a_row"], level_a=times)
+    d, g = phase7["dense"], phase7["pcg"]
+    line = (f"(b) segments P={P} L={L} clean (n_seg {SEG_SCALE['n_seg']}, sweeps {SEG_SCALE['sweeps']}, polish "
+            f"{SEG_SCALE['polish_iterations']}, {BA_ITERATIONS} LM iterations a sweep): cost {info['cost']:.1f}, ATE "
+            f"{ate:.4f} m (initial {init_ate:.4f}; tests/test_ba_scale_accuracy.py's PCG limit {BA_ATE_MAX['pcg']} and "
+            f"initial / 2.5: " + ("met" if pin else "NOT met") + f"; the JAX package's segment solver on this problem "
+            f"on the CPU: cost {SEG_SCALE_REFERENCE['cost']:.1f}, ATE {SEG_SCALE_REFERENCE['ate']:.4f} m, ROADMAP C; "
+            f"phase 7: dense {d['cost']:.1f} / {d['ate']:.4f} m, PCG {g['cost']:.1f} / {g['ate']:.4f} m), "
+            f"{info['iterations']} LM iterations in {seconds:.2f} s, sweeps "
+            + ", ".join(f"{x:.2f}" for x in info["sweep_seconds"]) + f" s synced, peak {peak:.2f} GiB; one level-A "
+            f"iteration (8 segments of {times['Ps']} poses, {times['Ls']} landmark slots) {times['iteration_ms']:.2f} "
+            f"ms synced, {times['enqueue_ms']:.2f} ms enqueue, "
+            + ("launches not measured" if times["launches"] is None else f"{times['launches']} launches") + ", "
+            + ("device time not measured" if times["device_ms"] is None else f"{times['device_ms']:.2f} ms device")
+            + f"; longest run of rejections of one segment's LM: {info['max_rejected_in_a_row']} ("
+            + ("meets" if plateau else "does not meet") + " four in a row, ROADMAP C's plateau)")
+    return out, line
+
+
+def phase_segments_long(dev) -> tuple[dict, str]:
+    """(c): past the dense ceiling, segments against the joint solve."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, _solver_form, compute_cost, optimize
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+    from vision_slam_frontend_tpu_torch.parallel.segment_ba import optimize_segments
+
+    cam, problem, gt_t, gt_lm = synthetic_ba_problem(**LONG_WORLD, device=dev)
+    solver = BASolverConfig(max_iterations=LONG_ITERATIONS)
+    form = _solver_form(problem, solver)
+    out = {}
+    for name, run in (("segments", lambda: optimize_segments(problem, cam=cam, solver=solver, **LONG_SEGMENTS)),
+                      ("joint", lambda: optimize(problem, cam=cam, solver=solver))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, info = run()
+        torch.cuda.synchronize()
+        out[name] = dict(cost=info["cost"], initial=info["history"][0], seconds=time.perf_counter() - t0,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30, iterations=info["iterations"],
+                         history=info["history"])
+    P = LONG_WORLD["P"]
+    yaw = 0.005 * np.arange(P)
+    gt_q = np.stack([np.cos(yaw / 2), np.zeros(P), np.sin(yaw / 2), np.zeros(P)], -1).astype(np.float32)
+    gt = problem.replace(poses_t=torch.from_numpy(gt_t).to(dev), poses_q=torch.from_numpy(gt_q).to(dev),
+                         landmarks=torch.from_numpy(gt_lm).to(dev))
+    out["gt_cost"] = gt_cost = float(compute_cost(cam, gt, *ba_scalars(), True))
+    s, j = out["segments"], out["joint"]
+    line = (f"(c) P={P} L={LONG_WORLD['L']}, {int(problem.obs_mask.sum())} observations, drifting: segments (n_seg "
+            f"{LONG_SEGMENTS['n_seg']}, sweeps {LONG_SEGMENTS['sweeps']}, polish {LONG_SEGMENTS['polish_iterations']}) "
+            f"cost {s['initial']:.1f} -> {s['cost']:.1f} in {s['seconds']:.2f} s, peak {s['peak_gib']:.2f} GiB; joint "
+            f"optimize under auto ({form}) {j['cost']:.1f} in {j['seconds']:.2f} s, peak {j['peak_gib']:.2f} GiB; "
+            f"ground truth's cost {gt_cost:.1f}")
+    check(np.isfinite(s["cost"]) and s["cost"] < 0.01 * s["initial"] and monotone(s["history"]),
+          f"{line}: segments not finite, monotone and below 0.01 of the initial")
+    out["gt_check_met"] = met = s["cost"] < 2.0 * gt_cost
+    return out, line + ("; below twice the ground truth's: met" if met else
+                        "; below twice the ground truth's (tests/test_segment_ba.py's second check): NOT met, ROADMAP C")
+
+
+def _dist_modes(mesh, dev) -> dict:
+    """The three distributed modes on phase 7 (a)'s problem over `mesh`:
+    each one's final cost, iterations, poses and landmarks (numpy)."""
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+    from vision_slam_frontend_tpu_torch.parallel.segment_ba import optimize_segments
+    from vision_slam_frontend_tpu_torch.parallel.sharded_ba import (
+        optimize_sharded,
+        optimize_sharded_dense,
+        pad_observations,
+    )
+
+    cam, problem, _, _ = synthetic_ba_problem(**BA_SMALL, device=dev)
+    it = BA_SMALL_ITERATIONS
+    runs = {
+        "pcg": lambda: optimize_sharded(pad_observations(problem, mesh.size), mesh, cam=cam, solver=BASolverConfig(
+            max_iterations=it, schur_solver="pcg", cg_iterations=BA_CG_ITERATIONS)),
+        "dense": lambda: optimize_sharded_dense(problem, mesh, cam=cam, solver=BASolverConfig(
+            max_iterations=it, schur_solver="dense")),
+        "segments": lambda: optimize_segments(problem, mesh=mesh, cam=cam, solver=BASolverConfig(
+            max_iterations=it, cg_iterations=BA_CG_ITERATIONS), n_seg=DIST_SEGMENTS, sweeps=2, polish_iterations=0),
+    }
+    out = {}
+    for name, run in runs.items():
+        opt, info = run()
+        out[name] = dict(cost=info["cost"], iterations=info["iterations"], poses_t=opt.poses_t.cpu().numpy(),
+                         poses_q=opt.poses_q.cpu().numpy(), landmarks=opt.landmarks.cpu().numpy())
+    return out
+
+
+def _dist_worker(rank: int, world: int, backend: str, port: int, device: str, queue) -> None:
+    """One rank of phase 11 (d), in a spawned process on `device` (every
+    rank on the same one): the three modes and comm_report's counts over the
+    process group."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from vision_slam_frontend_tpu_torch.parallel.comm_report import report_modes
+        from vision_slam_frontend_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        initialize_distributed(f"localhost:{port}", world, rank, backend=backend, device=dev)
+        try:
+            mesh = make_mesh(world, dev)
+            out = _dist_modes(mesh, dev)
+            out["counts"] = report_modes(world, P=BA_SMALL["P"], L=BA_SMALL["L"], device=dev,
+                                         cg_iters=BA_CG_ITERATIONS, group=mesh)
+        finally:
+            dist.destroy_process_group()
+        queue.put((backend, rank, out))
+    except BaseException:
+        queue.put((backend, rank, traceback.format_exc()))
+        raise
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_distributed(dev, npz: str, tmp: str) -> tuple[dict, list[str]]:
+    """(d): the process groups on the one card, against single-process runs."""
+    import queue as queue_mod
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
+    from vision_slam_frontend_tpu_torch.io.synthetic import synthetic_ba_problem
+    from vision_slam_frontend_tpu_torch.parallel.mesh import LocalShards
+    from vision_slam_frontend_tpu_torch.parallel.segment_ba import optimize_segments
+
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_dist_worker, args=(rank, world, backend, port, str(dev), results))
+             for backend, world, port in ((b, w, free_port()) for b, w in DIST_GROUPS) for rank in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    # Meanwhile, the single-process runs in this process: the unsharded
+    # solves and the modes on in-process groups.
+    cam, problem, _, _ = synthetic_ba_problem(**BA_SMALL, device=dev)
+    it = BA_SMALL_ITERATIONS
+    single = {
+        "pcg": optimize(problem.replace(pose_obs=None, pose_obs_mask=None, lm_obs=None, lm_obs_mask=None), cam=cam,
+                        solver=BASolverConfig(max_iterations=it, schur_solver="pcg", cg_iterations=BA_CG_ITERATIONS)),
+        "dense": optimize(problem, cam=cam, solver=BASolverConfig(max_iterations=it, schur_solver="dense")),
+        "segments": optimize_segments(problem, cam=cam, solver=BASolverConfig(
+            max_iterations=it, cg_iterations=BA_CG_ITERATIONS), n_seg=DIST_SEGMENTS, sweeps=2, polish_iterations=0),
+    }
+    in_process = _dist_modes(LocalShards(DIST_RANKS, dev), dev)
+    one_shard = _dist_modes(LocalShards(1, dev), dev)
+    got = {}
+    deadline = time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        while len(got) < len(procs):
+            try:
+                backend, rank, out = results.get(timeout=5)
+            except queue_mod.Empty:
+                failed = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                check(not failed, f"a rank of phase 11 (d) exited with {failed} before its result")
+                check(time.perf_counter() < deadline, f"a rank of phase 11 (d) gave no result in {DIST_TIMEOUT_S} s")
+                continue
+            check(not isinstance(out, str), f"{backend} rank {rank} failed:\n{out}")
+            got[backend, rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(all(p.exitcode == 0 for p in procs), f"rank exit codes {[p.exitcode for p in procs]}")
+    seconds = time.perf_counter() - t0
+    lines, numbers = [], {"seconds": seconds}
+
+    gloo = got["gloo", 0]
+    for name in ("pcg", "dense", "segments"):
+        a, b = gloo[name], got["gloo", 1][name]
+        check(np.array_equal(a["poses_t"], b["poses_t"]) and np.array_equal(a["landmarks"], b["landmarks"]),
+              f"gloo {name}: the two ranks' results differ")
+        c = in_process[name]
+        rel = abs(a["cost"] - c["cost"]) / c["cost"]
+        pose = float(np.abs(a["poses_t"] - c["poses_t"]).max())
+        tol = DIST_PCG_RTOL if name == "pcg" else DIST_SEG_RTOL
+        ref, ref_info = single[name]
+        text = (f"{name} cost {a['cost']:.6g} vs {c['cost']:.6g} on {DIST_RANKS} in-process shards (rel {rel:.2e}, "
+                f"poses max diff {pose:.2e}) and {ref_info['cost']:.6g} unsharded")
+        check(rel <= tol, f"gloo {text}: cost beyond {tol}")
+        numbers[f"gloo_{name}"] = dict(cost=a["cost"], in_process_cost=c["cost"], single_cost=ref_info["cost"],
+                                       rel=rel, pose=pose)
+        if name == "dense":
+            rel1 = abs(a["cost"] - ref_info["cost"]) / ref_info["cost"]
+            pose1 = float(np.abs(a["poses_t"] - ref.poses_t.cpu().numpy()).max())
+            lm1 = float(np.abs(a["landmarks"] - ref.landmarks.cpu().numpy()).max())
+            text += f" (rel {rel1:.2e}, poses max diff {pose1:.2e}, landmarks {lm1:.2e})"
+            check(pose1 <= BA_POSE_ATOL and lm1 <= BA_LM_ATOL and rel1 <= BA_COST_RTOL,
+                  f"gloo {text}: beyond poses {BA_POSE_ATOL}, landmarks {BA_LM_ATOL}, cost {BA_COST_RTOL} of the "
+                  "unsharded dense solve")
+            numbers["gloo_dense"].update(single_rel=rel1, single_pose=pose1, single_lm=lm1)
+        lines.append(text)
+        for field in ("poses_t", "poses_q", "landmarks"):
+            if ("nccl", 0) in got:
+                check_equal_arrays(f"nccl world 1 {name} {field} vs one in-process shard", got["nccl", 0][name][field],
+                                   one_shard[name][field])
+    for backend, rank in got:
+        for r in got[backend, rank]["counts"]:
+            check((r["calls"], r["bytes"]) == (r["expected_calls"], r["expected_bytes"]),
+                  f"{backend}: {r['mode']} counted {r['calls']} calls / {r['bytes']} bytes, expected "
+                  f"{r['expected_calls']} / {r['expected_bytes']}")
+    numbers["counts"] = got["gloo", 0]["counts"]
+    counts = "; ".join(f"{r['mode']} {r['calls']} calls, {r['bytes']} bytes" for r in numbers["counts"])
+
+    proc = subprocess.run([sys.executable, "-m", "vision_slam_frontend_tpu_torch.cli.slam_backend", "--input", npz,
+                           "--output", os.path.join(tmp, "devices2.npz"), "--devices", "2"],
+                          capture_output=True, text=True, timeout=300)
+    refusal = f"needs 2 CUDA devices, found {torch.cuda.device_count()}"
+    check(proc.returncode != 0 and refusal in proc.stderr,
+          f"slam_backend --devices 2: exit {proc.returncode}, stderr {proc.stderr[-500:]!r}")
+    check(not os.path.exists(os.path.join(tmp, "devices2.npz")), "slam_backend --devices 2 wrote an output")
+    return numbers, [
+        f"(d) {DIST_RANKS} processes over gloo, CUDA tensors on cuda:0, P={BA_SMALL['P']} L={BA_SMALL['L']}, "
+        f"{BA_SMALL_ITERATIONS} LM iterations: " + "; ".join(lines) + "; the ranks' results equal",
+        "(d) a world-size-1 NCCL group: every mode's poses and landmarks equal a one-shard in-process group's",
+        f"(d) collectives per LM iteration (comm_report, {DIST_RANKS} gloo ranks, cg {BA_CG_ITERATIONS}; segments: "
+        f"a sweep of one level-A iteration), equal to the analytic count on both groups: {counts}",
+        f"(d) slam_backend --devices 2 exits {proc.returncode}: {proc.stderr.strip().splitlines()[-1]}",
+        f"(d) {seconds:.1f} s with the processes' start-up",
+    ]
+
+
+def phase_segments_cli(npz: str, dev, tmp) -> str:
+    """(e): slam_backend --schur_solver segments on the card and on the CPU."""
+    from vision_slam_frontend_tpu_torch.cli.slam_backend import main as backend_main
+
+    outs, summary = {}, []
+    for where, device in (("card", str(dev)), ("cpu", "cpu")):
+        outs[where] = os.path.join(tmp, f"segments_{where}.npz")
+        rc, printed = run_cli_quiet(["--input", npz, "--output", outs[where], "--device", device, "--schur_solver",
+                                     "segments"], main=backend_main)
+        check(rc == 0, f"slam_backend --schur_solver segments --device {device}: exit code {rc}")
+        if where == "card":
+            summary = [ln for ln in printed.splitlines() if ln.startswith(("BA problem", "BA (segments"))]
+    a, b = np.load(outs["card"]), np.load(outs["cpu"])
+    check(sorted(a.files) == sorted(b.files), "slam_backend segments npz keys differ between the card and the CPU")
+    for k in b.files:
+        check(a[k].dtype == b[k].dtype and (k == "ba_cost_history" or a[k].shape == b[k].shape),
+              f"slam_backend segments npz {k}: shape/dtype differ")
+    pose = float(max(np.abs(a["nodes_loc"] - b["nodes_loc"]).max(), np.abs(a["nodes_quat"] - b["nodes_quat"]).max()))
+    lm = float(np.abs(a["ba_landmarks"] - b["ba_landmarks"]).max())
+    check(bool(np.isfinite(a["ba_landmarks"]).all()), "slam_backend segments: non-finite landmarks")
+    check(pose <= BA_POSE_ATOL, f"slam_backend segments card vs CPU: poses {pose:.2e} beyond {BA_POSE_ATOL}")
+    return (f"(e) slam_backend --schur_solver segments on {MAIN_INPUT}'s problem: " + "; ".join(summary)
+            + f" | card vs CPU: {len(a.files)} keys with equal dtypes and shapes, poses max diff {pose:.2e}, "
+            f"landmarks {lm:.2e}, final cost {float(a['ba_cost_history'][-1]):.4f} vs "
+            f"{float(b['ba_cost_history'][-1]):.4f}")
+
+
+def phase_parallel(ck, dev, npz: str, tmp, card: str, phase7: dict):
+    """Phase 11, one line per part as it ends; returns (the numbers, the
+    launch counts of the frontend kernels while it ran: none)."""
+    import torch
+
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    say("11 parallel", f"[{card}] " + phase_segments_small(dev))
+    scale, line = phase_segments_scale(dev, phase7)
+    say("11 parallel", f"[{card}] " + line)
+    torch.cuda.empty_cache()
+    long_run, line = phase_segments_long(dev)
+    say("11 parallel", f"[{card}] " + line)
+    torch.cuda.empty_cache()
+    dist_numbers, lines = phase_distributed(dev, npz, tmp)
+    for line in lines:
+        say("11 parallel", f"[{card}] " + line)
+    say("11 parallel", phase_segments_cli(npz, dev, tmp))
+    launches = dict(ck.LAUNCHES)
+    check_launches("parallel", launches, (), absent=tuple(KERNELS))
+    seconds = time.perf_counter() - t0
+    say("11 parallel", f"phase 11 took {seconds:.1f} s")
+    return {"segments_scale": scale, "beyond_ceiling": long_run, "distributed": dist_numbers,
+            "seconds": seconds}, launches
+
 
 def main() -> int:
     try:
@@ -2267,12 +2726,16 @@ def main() -> int:
     say("9 golden", line)
     line, per_path["validate_cli"] = phase_validate(ck, dev, tmp_dir.name)
     say("9 golden", line)
-    tmp_dir.cleanup()
     say("9 golden", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
     inputs, input_paths = phase_inputs(ck, dev, smi)
     per_path.update(input_paths)
-    say("10 inputs", f"whole run {time.perf_counter() - t_start:.1f} s")
+    say("10 inputs", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    parallel, per_path["parallel"] = phase_parallel(ck, dev, os.path.join(tmp_dir.name, "orb_gpu.npz"), tmp_dir.name,
+                                                    smi, ba_numbers["scale"])
+    tmp_dir.cleanup()
+    say("11 parallel", f"whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
     print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
@@ -2280,7 +2743,7 @@ def main() -> int:
                                 for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
                       "launch_floor_ms": floor_ms,
                       "launches_per_path": per_path, "ba": ba_numbers, "local_ba": lba_numbers,
-                      "golden_loop": golden, "inputs": inputs}), flush=True)
+                      "golden_loop": golden, "inputs": inputs, "parallel": parallel}), flush=True)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])

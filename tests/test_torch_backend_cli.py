@@ -127,12 +127,72 @@ def test_backend_cli_on_cpu_equals_the_jax_cli(frontend_npz, tmp_path, capsys):
     assert a["ba_cost_history"][-1] == pytest.approx(b["ba_cost_history"][-1], rel=1e-4)
 
 
-def test_backend_cli_refuses_what_is_not_ported(frontend_npz, tmp_path):
+def _held_to_the_jax_cli(ours: str, theirs: str, pose_atol: float):
+    """The same keys, shapes and dtypes (but the cost history's length, the
+    number of LM iterations, which float32 PCG's accept/reject flips change),
+    int fields equal, poses within `pose_atol`, finite landmarks."""
+    a, b = np.load(ours), np.load(theirs)
+    assert sorted(a.files) == sorted(b.files)
+    for k in b.files:
+        assert a[k].dtype == b[k].dtype, k
+        if k != "ba_cost_history":
+            assert a[k].shape == b[k].shape, k
+        if a[k].dtype.kind in "iub":
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_allclose(a["nodes_loc"], b["nodes_loc"], atol=pose_atol)
+    np.testing.assert_allclose(a["nodes_quat"], b["nodes_quat"], atol=pose_atol)
+    assert np.isfinite(a["ba_landmarks"]).all()
+    return a, b
+
+
+def test_backend_cli_segments_equals_the_jax_cli(frontend_npz, tmp_path):
+    """--schur_solver segments (pre-trim, 4 segments, 2 sweeps, the trimmed
+    re-run) against the JAX CLI's on the port's synthetic:20 problem: poses
+    within tests/test_segment_ba.py's 2e-3, final cost within its 2%."""
+    from vision_slam_frontend_tpu.cli import slam_backend as jcli
     from vision_slam_frontend_tpu_torch.cli import slam_backend
 
-    base = ["--input", frontend_npz, "--output", str(tmp_path / "o.npz"), "--device", "cpu"]
-    for extra, match in ((["--schur_solver", "segments"], "A13"), (["--devices", "2"], "A13")):
-        with pytest.raises(NotImplementedError, match=match):
-            slam_backend.main(base + extra)
-    assert slam_backend.main(["--input", str(tmp_path / "missing.npz"), "--output", "x", "--device", "cpu"]) == 1
+    ours, theirs = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    args = ["--input", frontend_npz, "--schur_solver", "segments", "--sweeps", "2"]
+    assert slam_backend.main(args + ["--output", ours, "--device", "cpu"]) == 0
+    assert jcli.main(args + ["--output", theirs]) == 0
+    a, b = _held_to_the_jax_cli(ours, theirs, 2e-3)
+    assert a["ba_cost_history"][-1] == pytest.approx(b["ba_cost_history"][-1], rel=2e-2)
+    assert a["ba_cost_history"][-1] < 0.1 * a["ba_cost_history"][0]
+
+
+def test_backend_cli_two_cpu_ranks_equal_the_jax_cli(frontend_npz, tmp_path, capfd):
+    """--devices 2 --device cpu: two gloo ranks started by the CLI run the
+    observation-sharded PCG (trim rounds included) against the JAX CLI's
+    --devices 2 on its CPU mesh: poses within the PCG tolerance (2e-2,
+    tests/test_parallel.py's), the final cost within 3e-3 (the two LM paths
+    part after a float32 flip; measured 5.5e-4)."""
+    from vision_slam_frontend_tpu.cli import slam_backend as jcli
+    from vision_slam_frontend_tpu_torch.cli import slam_backend
+
+    ours, theirs = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    assert slam_backend.main(["--input", frontend_npz, "--output", ours, "--device", "cpu", "--devices", "2"]) == 0
+    assert "Sharded 1058 observations over 2 devices" in capfd.readouterr().out
+    assert jcli.main(["--input", frontend_npz, "--output", theirs, "--devices", "2"]) == 0
+    a, b = _held_to_the_jax_cli(ours, theirs, 2e-2)
+    assert a["ba_cost_history"][-1] == pytest.approx(b["ba_cost_history"][-1], rel=3e-3)
+
+
+def test_backend_cli_refuses_what_is_not_ported(frontend_npz, tmp_path, capsys):
+    """What the CLI cannot run fails with a message and writes nothing:
+    --devices 2 on the GPU with fewer than 2 CUDA devices (never a run on
+    fewer devices or on the CPU), a solver checkpoint with --devices, an
+    unreadable input (on one process and on two ranks)."""
+    from vision_slam_frontend_tpu_torch.cli import slam_backend
+
+    found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    base = ["--input", frontend_npz, "--output", str(tmp_path / "o.npz")]
+    if found < 2:
+        assert slam_backend.main(base + ["--devices", "2"]) == 2
+        assert f"needs 2 CUDA devices, found {found}" in capsys.readouterr().err
+    assert slam_backend.main(base + ["--devices", "2", "--device", "cpu", "--checkpoint", "c.npz"]) == 2
+    assert "--checkpoint" in capsys.readouterr().err
+    missing = ["--input", str(tmp_path / "missing.npz"), "--output", str(tmp_path / "o.npz"), "--device", "cpu"]
+    assert slam_backend.main(missing) == 1
+    assert slam_backend.main(missing + ["--devices", "2"]) == 1  # each rank fails; the CLI reports it
     assert not os.path.exists(str(tmp_path / "o.npz"))

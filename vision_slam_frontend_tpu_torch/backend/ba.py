@@ -157,6 +157,15 @@ def _sym3_inv(M):
     return inv / det[..., None, None]
 
 
+def _per_row(lm_damping, rows: int):
+    """LM damping for each of `rows` rows: a number as it is; a (n,) tensor,
+    one lambda per segment of a folded problem (parallel/segment_ba), whose
+    poses and landmarks split into n equal consecutive blocks, as (rows, 1, 1)."""
+    if torch.is_tensor(lm_damping):
+        return lm_damping.repeat_interleave(rows // lm_damping.shape[0])[:, None, None]
+    return lm_damping
+
+
 def _huber(r, Jp, Jl, huber_delta):
     """IRLS-weighted residual rows and Jacobians."""
     w = huber_weights(r, huber_delta)[..., None]
@@ -212,19 +221,40 @@ def _linearize_pm(cam, problem: BAProblem, pm, huber_delta, odom_t_weight, odom_
     return (r, Jp, Jl) + _linearize_odom(problem, odom_t_weight, odom_r_weight)
 
 
-def compute_cost(cam, problem: BAProblem, huber_delta, odom_t_weight, odom_r_weight, cfg_huber_enabled: bool):
-    """True robustified cost (not the IRLS quadratic), a 0-d tensor."""
+def reprojection_costs(cam, problem: BAProblem, huber_delta, cfg_huber_enabled: bool):
+    """Each observation's robust reprojection cost (N,), masked: the terms
+    compute_cost sums (a sharded or segmented caller sums them itself)."""
     r = reprojection_residuals(
         cam, problem.poses_t, problem.poses_q, problem.landmarks,
         problem.obs_pose, problem.obs_landmark, problem.obs_pixel, problem.obs_mask,
         problem.obs_pixel_right, problem.obs_right_mask,
     )
+    if not cfg_huber_enabled:
+        return 0.5 * torch.sum(r * r, dim=-1)
+    norm = torch.linalg.norm(r, dim=-1)
+    rho = torch.where(norm <= huber_delta, 0.5 * norm**2, huber_delta * (norm - 0.5 * huber_delta))
+    return rho * problem.obs_mask
+
+
+def odometry_cost(problem: BAProblem, odom_t_weight, odom_r_weight):
+    """The odometry factors' cost terms 0.5 |r|^2, (Q,)."""
+    ro = odometry_residuals(
+        problem.poses_t, problem.poses_q, problem.odom_i, problem.odom_j,
+        problem.odom_t, problem.odom_q, problem.odom_mask, odom_t_weight, odom_r_weight,
+    )
+    return 0.5 * torch.sum(ro * ro, dim=-1)
+
+
+def compute_cost(cam, problem: BAProblem, huber_delta, odom_t_weight, odom_r_weight, cfg_huber_enabled: bool):
+    """True robustified cost (not the IRLS quadratic), a 0-d tensor."""
     if cfg_huber_enabled:
-        norm = torch.linalg.norm(r, dim=-1)
-        d = huber_delta
-        rho = torch.where(norm <= d, 0.5 * norm**2, d * (norm - 0.5 * d))
-        reproj_cost = torch.sum(rho * problem.obs_mask)
+        reproj_cost = torch.sum(reprojection_costs(cam, problem, huber_delta, True))
     else:
+        r = reprojection_residuals(
+            cam, problem.poses_t, problem.poses_q, problem.landmarks,
+            problem.obs_pose, problem.obs_landmark, problem.obs_pixel, problem.obs_mask,
+            problem.obs_pixel_right, problem.obs_right_mask,
+        )
         reproj_cost = 0.5 * torch.sum(r * r)
     ro = odometry_residuals(
         problem.poses_t, problem.poses_q, problem.odom_i, problem.odom_j,
@@ -303,7 +333,7 @@ def _schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem: BAProblem, lm_damp
     # --- Landmark blocks.
     VV = torch.einsum("pmij,pmik->pmjk", Jl_pm, Jl_pm).reshape(P, Mp, 9)
     V = _lm_reduce(VV, lm_tbl, lm_mask).reshape(L, 3, 3)
-    damping = lm_damping
+    damping = _per_row(lm_damping, L)
     if trace_floor:
         # Trace-relative damping floor (the dense path's): with plain
         # lm_damping (~1e-3) against V ~ 1e6, cond(V) reaches ~1e9 and the
@@ -313,7 +343,7 @@ def _schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem: BAProblem, lm_damp
         # ~3e5; it applies to the factorization, elimination and
         # back-substitution alike (per-landmark-scaled LM damping).
         trV = V[..., 0, 0] + V[..., 1, 1] + V[..., 2, 2]
-        damping = (1e-5 * trV / 3.0).clamp(min=lm_damping)[..., None, None]
+        damping = (1e-5 * trV / 3.0)[..., None, None].clamp(min=damping)
     V = V + damping * _eye(3, V)[None]
     V_inv = _sym3_inv(V)
     free = _free_mask(problem, fix_first, r_pm.dtype)
@@ -328,7 +358,7 @@ def _schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem: BAProblem, lm_damp
     b = (g_pose - torch.einsum("pmij,pmi->pj", Jp_pm, Jls)) * free[:, None]
 
     U_diag = torch.einsum("pmij,pmik->pjk", Jp_pm, Jp_pm) + U_odom
-    U_diag = U_diag + lm_damping * _eye(6, U_diag)[None]
+    U_diag = U_diag + _per_row(lm_damping, P) * _eye(6, U_diag)[None]
     return dict(V=V, V_inv=V_inv, free=free, g_lm=g_lm, b=b, U_diag=U_diag, pm_mask=pm_mask,
                 lm_tbl=lm_tbl, lm_mask=lm_mask, ol_pm=ol_pm)
 
@@ -437,43 +467,50 @@ def _inv_lower3(G):
     )
 
 
-def _s_init(U_diag, Ji, Jj, odom_i, odom_j):
+def _s_init(U_diag, Ji, Jj, odom_i, odom_j, block_poses: int | None = None):
     """S's block diagonal and odometry coupling blocks, block-major
-    (P, P, 6, 6): S4[p, q] is S's 6x6 block of poses p and q."""
+    (P, Pb, 6, 6): S4[p, q % Pb] is S's 6x6 block of poses p and q. Pb
+    (`block_poses`, default P) is the width of S's diagonal blocks: a folded
+    problem of P / Pb independent segments (parallel/segment_ba) keeps only
+    them, every pair of poses that shares a factor lying in one segment."""
     P = U_diag.shape[0]
-    S4 = U_diag.new_zeros(P, P, 6, 6)
+    Pb = block_poses or P
+    S4 = U_diag.new_zeros(P, Pb, 6, 6)
     ar = torch.arange(P, device=U_diag.device)
-    S4[ar, ar] = U_diag
+    S4[ar, ar % Pb] = U_diag
     if odom_i is not None:
         Koff = torch.einsum("qia,qib->qab", Ji, Jj)  # zero on masked factors
-        flat = S4.view(P * P, 36)
-        _scatter_add_(flat, odom_i * P + odom_j, Koff.reshape(-1, 36))
-        _scatter_add_(flat, odom_j * P + odom_i, Koff.transpose(1, 2).reshape(-1, 36))
+        flat = S4.view(P * Pb, 36)
+        _scatter_add_(flat, odom_i * Pb + odom_j % Pb, Koff.reshape(-1, 36))
+        _scatter_add_(flat, odom_j * Pb + odom_i % Pb, Koff.transpose(1, 2).reshape(-1, 36))
     return S4
 
 
-def _dense_coupling_plan(problem: BAProblem):
+def _dense_coupling_plan(problem: BAProblem, block_poses: int | None = None):
     """The coupling term's static plan, built once per round (one host
     sync): every pair (a, b) of valid observation slots of each landmark l,
-    as (l, a, b, target block pose(a) * P + pose(b)). S -= Bt[l, a] Bt[l, b]^T
-    at each target, about L * obs_per_landmark^2 6x6 blocks."""
-    P = problem.num_poses
+    as (l, a, b, target block pose(a) * Pb + pose(b) % Pb) in _s_init's
+    layout. S -= Bt[l, a] Bt[l, b]^T at each target, about
+    L * obs_per_landmark^2 6x6 blocks."""
+    Pb = block_poses or problem.num_poses
     Mp = problem.pose_obs.shape[1]
     mask = problem.lm_obs_mask
     lm, a, b = (mask[:, :, None] & mask[:, None, :]).nonzero(as_tuple=True)
     pose_of = problem.lm_obs // Mp  # (L, Ml) pose of each landmark-observation slot
-    return lm, a, b, pose_of[lm, a] * P + pose_of[lm, b]
+    return lm, a, b, pose_of[lm, a] * Pb + pose_of[lm, b] % Pb
 
 
 def _dense_assemble(
     pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem: BAProblem, lm_damping, fix_first: bool, plan=None,
+    block_poses: int | None = None,
 ):
     """The explicit reduced camera matrix of a damped GN step,
         S = U + lambda*I - B B^T,   B = W V^{-1/2}  (W = Jp^T Jl per pair),
     assembled in float32: the block diagonal and odometry blocks, then each
     landmark's observation pairs' 6x6 products, reduced into S by the
     deterministic scatter. `plan` is _dense_coupling_plan(problem), built
-    here when None. Returns (S4 (P, P, 6, 6), b, free, V_inv, g_lm)."""
+    here when None; `block_poses` is _s_init's. Returns (S4 (P, Pb, 6, 6),
+    b, free, V_inv, g_lm)."""
     P = problem.num_poses
     L = problem.num_landmarks
     t = _schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor=True)
@@ -482,27 +519,29 @@ def _dense_assemble(
     Ginv = _inv_lower3(_chol3(t["V"]))  # V^{-1} = Ginv^T Ginv
 
     # --- Dense S: diagonal U + odometry + damping, odometry off-diagonal blocks.
-    S4 = _s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j)
+    S4 = _s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j, block_poses)
 
     # --- Coupling: S -= B B^T, B_l = W_l G_l^{-T}, one 6x6 product per pair
     # of one landmark's observations.
     W_pm = torch.einsum("pmij,pmik->pmjk", Jp_pm, Jl_pm)  # (P, Mp, 6, 3)
     W_lm = W_pm.reshape(P * Mp, 18)[lm_tbl].reshape(L, Ml, 6, 3) * lm_mask[..., None]
     Bt = torch.einsum("lmij,lcj->lmic", W_lm, Ginv)  # (L, Ml, 6, 3) = W G^{-T}
-    lm, a, bb, target = _dense_coupling_plan(problem) if plan is None else plan
+    lm, a, bb, target = _dense_coupling_plan(problem, block_poses) if plan is None else plan
     C = torch.einsum("nic,njc->nij", Bt[lm, a], Bt[lm, bb])
-    _scatter_add_(S4.view(P * P, 36), target, -C.reshape(-1, 36))
+    _scatter_add_(S4.view(P * S4.shape[1], 36), target, -C.reshape(-1, 36))
     return S4, t["b"], t["free"], t["V_inv"], t["g_lm"]
 
 
 def _dense_core(
     pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem: BAProblem, lm_damping, fix_first: bool, plan=None,
+    block_poses: int | None = None,
 ):
     """One damped GN step through the explicit reduced camera matrix
-    (_dense_assemble), solved with one Cholesky (_dense_solve_core), then
-    the landmarks' back-substitution. Returns (d_pose, d_lm, |residual|)."""
+    (_dense_assemble), solved with one Cholesky (_dense_solve_core; one per
+    diagonal block of `block_poses` poses), then the landmarks'
+    back-substitution. Returns (d_pose, d_lm, |residual|)."""
     S4, b, free, V_inv, g_lm = _dense_assemble(
-        pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan,
+        pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan, block_poses,
     )
     d_pose, rrn = _dense_solve_core(S4, b, free)
     lm_mask = problem.lm_obs_mask.to(g_lm.dtype)[..., None]
@@ -511,31 +550,37 @@ def _dense_core(
 
 def _dense_solve_core(S4, b, free):
     """Gauge + exact Cholesky solve of the assembled reduced camera system
-    S4 (P, P, 6, 6). A failed factorization gives NaN (as the JAX
-    package's Cholesky does), which the LM loop meets as a non-finite cost."""
-    P = b.shape[0]
-    S2 = S4.permute(0, 2, 1, 3).reshape(6 * P, 6 * P)  # row 6p + i
-    free6 = free.repeat_interleave(6)
-    S2 = S2 * free6[:, None] * free6[None, :]
-    S2 = S2 + torch.diag(1.0 - free6)
+    S4 (P, Pb, 6, 6) (_s_init's layout): one matrix where Pb == P, else one
+    per diagonal block of Pb poses, factored together. A failed
+    factorization gives NaN (as the JAX package's Cholesky does) in its
+    block's step, which the LM loop meets as a non-finite cost."""
+    P, Pb = S4.shape[:2]
+    n = P // Pb
+    S2 = S4.reshape(n, Pb, Pb, 6, 6).permute(0, 1, 3, 2, 4).reshape(n, 6 * Pb, 6 * Pb)  # row 6p + i
+    if n == 1:
+        S2 = S2[0]
+    free6 = free.repeat_interleave(6).reshape(S2.shape[:-1])
+    S2 = S2 * free6[..., :, None] * free6[..., None, :]
+    S2 = S2 + torch.diag_embed(1.0 - free6)
     # Jacobi equilibration: at small LM damping the raw S's condition number
     # reaches ~1e12 (diag spans rotation vs translation blocks and pose
     # observation counts), past what an f32 Cholesky can factor; scaling by
     # d = diag(S)^{-1/2} is exact (D S D with the solve rescaled).
-    d = torch.rsqrt(torch.diagonal(S2).clamp(min=1e-20))
-    S2e = S2 * d[:, None] * d[None, :]
+    d = torch.rsqrt(torch.diagonal(S2, dim1=-2, dim2=-1).clamp(min=1e-20))
+    S2e = S2 * d[..., :, None] * d[..., None, :]
     # Assembly-noise ridge: the f32 coupling accumulates ~1e-7 relative
     # error of |S|, which swamps the exact system's smallest eigenvalues at
     # small LM damping. A 1e-3 ridge on the EQUILIBRATED matrix is
     # Marquardt-style diag-relative damping: it keeps S positive definite
     # while perturbing the step by ~0.1% of each coordinate's curvature.
-    S2e = S2e + 1e-3 * _eye(6 * P, S2e)
+    S2e = S2e + 1e-3 * _eye(6 * Pb, S2e)
     chol, info = torch.linalg.cholesky_ex(S2e)  # no error check: no sync
-    y = torch.linalg.solve_triangular(chol, (b.reshape(-1) * d)[:, None], upper=False)
-    xe = torch.linalg.solve_triangular(chol.mT, y, upper=True)[:, 0]
-    x = torch.where(info == 0, xe * d, float("nan"))
+    y = torch.linalg.solve_triangular(chol, (b.reshape(d.shape) * d)[..., None], upper=False)
+    xe = torch.linalg.solve_triangular(chol.mT, y, upper=True)[..., 0]
+    x = torch.where(info[..., None] == 0, xe * d, float("nan"))
     d_pose = x.reshape(P, 6) * free[:, None]
-    rr = b - (S2 @ x).reshape(P, 6)
+    Sx = S2 @ x if n == 1 else (S2 @ x[..., None])[..., 0]
+    rr = b - Sx.reshape(P, 6)
     return d_pose, torch.linalg.norm(rr)
 
 
@@ -599,6 +644,75 @@ def _solve_schur_pcg_scatter(
     wtd = reduce_lm(torch.einsum("nij,ni->nj", Jl, y))
     d_lm = torch.einsum("ljk,lk->lj", V_inv, g_lm - wtd)
     return d_pose, d_lm, torch.linalg.norm(rr)
+
+
+def _solve_schur_pcg_sharded(
+    r, Jp, Jl, ro, Ji, Jj, problem: BAProblem, lm_damping, cg_iters: int, fix_first: bool, group,
+):
+    """The scatter Schur-PCG step of an observation-sharded problem
+    (parallel/sharded_ba): each shard of `group` (parallel/mesh) holds a
+    contiguous slice of the observations, poses and landmarks are
+    replicated. Every sum over observations is a partial per shard,
+    all-reduced: V, the landmark gradient and U in one all-reduce, the
+    reduced right-hand side's pose sum in one, each CG iteration's S x in one
+    of the (L, 3) landmark partial and one of the (P, 6) pose partial, the
+    back-substitution in one of (L, 3). The odometry terms, the
+    preconditioner and the CG scalars are computed alike on every shard from
+    replicated values: no host round trip."""
+    P = problem.num_poses
+    L = problem.num_landmarks
+    op = problem.obs_pose
+    ol = problem.obs_landmark
+
+    def reduce_pose(data):
+        return group.all_reduce(group.segsum(data, op, P))
+
+    def reduce_lm(data):
+        return group.all_reduce(group.segsum(data, ol, L))
+
+    lm_part = group.segsum(
+        torch.cat([torch.einsum("nij,nik->njk", Jl, Jl).reshape(-1, 9), torch.einsum("nij,ni->nj", Jl, r)], 1), ol, L,
+    )
+    pose_part = group.segsum(torch.einsum("nij,nik->njk", Jp, Jp).reshape(-1, 36), op, P)
+    packed = group.all_reduce(torch.cat([lm_part.flatten(-2), pose_part.flatten(-2)], -1))
+    lm_sums = packed[: 12 * L].view(L, 12)
+    V_inv = _sym3_inv(lm_sums[:, :9].reshape(L, 3, 3) + lm_damping * _eye(3, Jl)[None])
+    g_lm = -lm_sums[:, 9:]
+    g_odom, U_odom = _odom_terms(problem, Ji, Jj, ro, P)
+    U_diag = packed[12 * L:].view(P, 6, 6) + U_odom + lm_damping * _eye(6, Jp)[None]
+    free = _free_mask(problem, fix_first, r.dtype)
+
+    def gauge(x):
+        return x * free[:, None]
+
+    # b = g_pose - W V^{-1} g_lm = g_odom - sum_n Jp^T (r + Jl s).
+    Jls = torch.einsum("nij,nj->ni", Jl, torch.einsum("ljk,lk->lj", V_inv, g_lm)[ol])
+    b = gauge(g_odom - reduce_pose(torch.einsum("nij,ni->nj", Jp, r + Jls)))
+    M_inv = torch.linalg.inv_ex(U_diag).inverse
+
+    def S_apply(x):
+        x = gauge(x)
+        y = torch.einsum("nij,nj->ni", Jp, x[op])
+        st = torch.einsum("ljk,lk->lj", V_inv, reduce_lm(torch.einsum("nij,ni->nj", Jl, y)))
+        z = y - torch.einsum("nij,nj->ni", Jl, st[ol])  # (U - W V^{-1} W^T) x per observation
+        u = reduce_pose(torch.einsum("nij,ni->nj", Jp, z))
+        return gauge(u + _odom_apply(Ji, Jj, problem.odom_i, problem.odom_j, x, P) + lm_damping * x)
+
+    def M_apply(x):
+        return gauge(torch.einsum("pij,pj->pi", M_inv, x))
+
+    d_pose, rr = _run_pcg(b, S_apply, M_apply, cg_iters)
+    y = torch.einsum("nij,nj->ni", Jp, d_pose[op])
+    d_lm = torch.einsum("ljk,lk->lj", V_inv, g_lm - reduce_lm(torch.einsum("nij,ni->nj", Jl, y)))
+    return d_pose, d_lm, torch.linalg.norm(rr)
+
+
+def sharded_cost(cam, problem: BAProblem, huber_delta, odom_t_weight, odom_r_weight, cfg_huber_enabled: bool, group):
+    """compute_cost of an observation-sharded problem: the reprojection
+    terms' partial sums all-reduced, the replicated odometry terms added
+    once."""
+    return group.total(reprojection_costs(cam, problem, huber_delta, cfg_huber_enabled)) + torch.sum(
+        odometry_cost(problem, odom_t_weight, odom_r_weight))
 
 
 def refit_landmarks(cam, problem: BAProblem, huber_delta, iters: int, cfg_huber_enabled: bool):
@@ -665,16 +779,21 @@ def optimize(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 5,
     resume: bool = False,
+    group=None,
 ):
     """Run LM to convergence (with optional outlier-trimming rounds), on the
     device the problem's tensors live on.
 
     With `checkpoint_path`, solver state is snapshotted every
     `checkpoint_every` LM iterations; `resume=True` restarts from the last
-    snapshot if one exists (fresh run otherwise).
+    snapshot if one exists (fresh run otherwise). With a shard `group`
+    (parallel/mesh), `problem` is one of parallel/sharded_ba.shard_ba_problem
+    and every step is the observation-sharded Schur-PCG.
 
     Returns (optimized BAProblem, info dict)."""
     solver = solver or BASolverConfig()
+    if group is not None and checkpoint_path:
+        raise ValueError("solver checkpoints hold one process's problem: not available for a sharded solve")
     device = problem.device
     if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
@@ -707,7 +826,7 @@ def optimize(
         # pulls the estimate toward them.
         norms = _reproj_residual_norms(cam, problem)
         pre_mask = problem.obs_mask & (norms < 10.0 * solver.trim_threshold)
-        n_pre = int(problem.obs_mask.sum() - pre_mask.sum())
+        n_pre = _count_dropped(problem.obs_mask, pre_mask, group)
         if verbose and n_pre:
             print(f"[BA] pre-trim @ {10.0 * solver.trim_threshold:.0f}px: removed {n_pre} observations")
         n_trimmed_total += n_pre
@@ -722,7 +841,7 @@ def optimize(
 
         problem, info = _optimize_round(
             problem, solver, cam, verbose,
-            resume_state=rs, ckpt_cb=ckpt_cb, checkpoint_every=checkpoint_every,
+            resume_state=rs, ckpt_cb=ckpt_cb, checkpoint_every=checkpoint_every, group=group,
         )
         if total_info is None:
             total_info = info
@@ -739,7 +858,7 @@ def optimize(
             thresh = solver.trim_threshold * (4.0 ** (rounds - 2 - rnd))
             norms = _reproj_residual_norms(cam, problem)
             new_mask = problem.obs_mask & (norms < thresh)
-            n_trimmed = int(problem.obs_mask.sum() - new_mask.sum())
+            n_trimmed = _count_dropped(problem.obs_mask, new_mask, group)
             if verbose:
                 print(f"[BA] trim round {rnd} @ {thresh:.0f}px: removed {n_trimmed} observations")
             if n_trimmed == 0:
@@ -748,6 +867,12 @@ def optimize(
             problem = problem.replace(obs_mask=new_mask)
     total_info["trimmed"] = n_trimmed_total
     return problem, total_info
+
+
+def _count_dropped(old_mask, new_mask, group) -> int:
+    """Observations dropped from old_mask to new_mask, over every shard."""
+    dropped = old_mask & ~new_mask
+    return int(dropped.sum() if group is None else group.total(dropped.to(torch.float32)))
 
 
 def _solver_form(problem: BAProblem, solver: BASolverConfig) -> str:
@@ -773,14 +898,21 @@ def _optimize_round(
     resume_state: dict | None = None,
     ckpt_cb=None,
     checkpoint_every: int = 5,
+    group=None,
 ):
     huber_on = solver.huber_delta > 0
     hd = _round_f32(solver.huber_delta)
     wt = _round_f32(solver.odom_t_weight)
     wr = _round_f32(solver.odom_r_weight)
 
+
+    def cost_of(p):
+        if group is None:
+            return compute_cost(cam, p, hd, wt, wr, huber_on)
+        return sharded_cost(cam, p, hd, wt, wr, huber_on, group)
+
     lam = solver.init_lambda
-    cost = float(compute_cost(cam, problem, hd, wt, wr, huber_on))
+    cost = float(cost_of(problem))
     history = [cost]
     accepted = 0
     start_iter = 0
@@ -791,18 +923,23 @@ def _optimize_round(
         accepted = resume_state["accepted"]
         start_iter = resume_state["iter"]
     rejected_streak = 0
-    form = _solver_form(problem, solver)
+    form = "pcg_sharded" if group is not None else _solver_form(problem, solver)
     if solver.schur_solver in ("dense", "dense_chunked") and form != "dense" and verbose:
         print("[BA] no gather tables: dense -> PCG")
     # Pose-major path: observation inputs re-laid-out once per round (the
     # graph is static within a round), then every iteration linearizes
     # directly pose-major.
-    if form != "pcg_scatter":
+    if form not in ("pcg_scatter", "pcg_sharded"):
         pm = _build_pm_inputs(problem)
         plan = _dense_coupling_plan(problem) if form == "dense" else None
     for it in range(start_iter, solver.max_iterations):
         lam32 = _round_f32(lam)
-        if form == "pcg_scatter":
+        if form == "pcg_sharded":
+            d_pose, d_lm, cg_res = _solve_schur_pcg_sharded(
+                *_linearize(cam, problem, hd, wt, wr, huber_on), problem, lam32, solver.cg_iterations,
+                solver.fix_first_pose, group,
+            )
+        elif form == "pcg_scatter":
             r, Jp, Jl, ro, Ji, Jj = _linearize(cam, problem, hd, wt, wr, huber_on)
             d_pose, d_lm, cg_res = _solve_schur_pcg_scatter(
                 r, Jp, Jl, ro, Ji, Jj, problem, lam32, solver.cg_iterations, solver.fix_first_pose,
@@ -823,7 +960,7 @@ def _optimize_round(
 
             check_ba_step(it, d_pose, d_lm)
         candidate = _apply_step(problem, d_pose, d_lm)
-        new_cost = float(compute_cost(cam, candidate, hd, wt, wr, huber_on))  # the iteration's one sync
+        new_cost = float(cost_of(candidate))  # the iteration's one sync
         if verbose:
             print(
                 f"[BA] iter {it}: cost {cost:.4f} -> {new_cost:.4f} "
