@@ -139,13 +139,35 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               refused ("needs 2 CUDA devices, found 1"); (e) the slam_backend
               CLI with --schur_solver segments on phase 5's synthetic:20 npz,
               card against CPU
+ 12. tools    (a) the CLI on synthetic:20 with --visualize --save_debug on
+              the card (launch counts from that run) and on the CPU: the
+              same PNG names, each image at least 99.9% pixel-equal, the
+              live pages' deltas equal (node ids, edges; poses within 2e-4,
+              landmarks within 2e-3), the npz equal to phase 5's plain run
+              and the kernel launches equal to its, and
+              the host draw and PNG ms per keyframe of a Frontend with debug
+              images on the card; (b) the CLI on phase 10 (c)'s bag in a
+              process of its own, a warm-up, then without and with
+              --visualize --save_debug: frames/s, latency, peak RSS (with
+              them within 10% of without) and images written; (c) profile_stages on the card
+              (640x480, K=512, W=10): all 12 stages positive, the step's
+              synced and enqueue ms, its --trace_dir trace holding the three
+              frontend kernels ("not measured" where the trace has no device
+              kernel), and slam_frontend --profile_dir writing a trace; (d)
+              one ORB keyframe_step under utils/checks.checkified: no error
+              and the plain step's int and bool fields, a NaN pose naming an
+              aten op, an out-of-range gather raising no device assert (a
+              plain step after it still matches), checked against plain
+              seconds; (e) backend/dense_plateau.coupling_trial (ROADMAP C)
+              beside phase 7's dense run
 Then a JSON line of every kernel shape's numbers and the BA, local-BA,
-golden-loop, input and parallel numbers, the kernels JSON line and, last,
-the result line.
+golden-loop, input, parallel and tools numbers, the kernels JSON line and,
+last, the result line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -2205,10 +2227,11 @@ def phase_conditions(ck, dev, card: str) -> tuple[dict, dict]:
     return readings, launches
 
 
-def phase_inputs(ck, dev, card: str) -> tuple[dict, dict]:
+def phase_inputs(ck, dev, card: str, keep: str) -> tuple[dict, dict]:
     """Phase 10: the decode route, the degraded-bag golden pins, the bag
-    rate, KITTI, EuRoC and the exports, the survival matrix. Returns
-    (numbers, {path: launches})."""
+    rate (its bag and config written into `keep`, which phase 12 reads),
+    KITTI, EuRoC and the exports, the survival matrix. Returns (numbers,
+    {path: launches})."""
     from vision_slam_frontend_tpu_torch.io import image, native_loader
 
     route = CARD_DECODE_ROUTE
@@ -2220,7 +2243,7 @@ def phase_inputs(ck, dev, card: str) -> tuple[dict, dict]:
              else "native library already built")
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
-        rate, rate_line = phase_bag_rate(dev, tmp, card)
+        rate, rate_line = phase_bag_rate(dev, keep, card)
         say("10 inputs", f"(a) JPEG decode route {taken} (as probed); {build}; host decode of one 640x480 "
             f"JPEG pair {rate['decode_first_pair_ms']:.2f} ms (the first), {rate['decode_pair_ms']:.2f} ms (median)")
         golden, launches["bag_golden_orb"], bag = phase_bag_golden(ck, dev, tmp, route, card)
@@ -2630,6 +2653,355 @@ def phase_parallel(ck, dev, npz: str, tmp, card: str, phase7: dict):
             "seconds": seconds}, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the tools (debug images, the live viewer, stage profiling,
+# device-side checks) and the dense-plateau coupling trial
+# ---------------------------------------------------------------------------
+
+TOOLS_LIVE_TOL = dict(pose=2e-4, landmark=2e-3)  # the live page rounds to 4 and 3 decimals
+TOOLS_MIN_EQUAL_PIXELS = 0.999  # a sub-pixel coordinate at .5 may round apart
+TOOLS_RSS_RATIO = 1.10  # --save_debug streams: peak RSS within 10% of the plain run
+TOOLS_PROFILE_INPUT = "synthetic:8"
+TOOLS_CLI_FLAGS = ["--visualize", "--save_debug"]
+LIVE_CHUNK = r"<script>A\((\{.*?\})\)</script>"
+STAGES = ("detect_describe_x2", "stereo_ratio_match", "epipolar_filter", "window_match", "undistort_x2",
+          "triangulate", "  detect: fast_scores", "  detect: top_k", "  match: unpack_window",
+          "  match: best_percent", "  step: stable_partition", "  step: gather_compact")
+
+
+def live_chunks(npz: str) -> list:
+    import re
+
+    with open(os.path.splitext(npz)[0] + "_live.html") as f:
+        return [json.loads(c) for c in re.findall(LIVE_CHUNK, f.read())]
+
+
+def compare_live(a: list, b: list) -> str:
+    """Two live pages' delta chunks: equal node ids, edges and debug image
+    paths, poses and landmarks within TOOLS_LIVE_TOL."""
+    check(len(a) == len(b) >= 2, f"live pages: {len(a)} and {len(b)} delta chunks")
+    pose = lm = 0.0
+    for x, y in zip(a, b):
+        check([n["i"] for n in x["nodes"]] == [n["i"] for n in y["nodes"]], "live pages: node ids differ")
+        check(x["oe"] == y["oe"] and x["ve"] == y["ve"], "live pages: edge lists differ")
+        check(x.get("dbg") == y.get("dbg"), "live pages: embedded debug images differ")
+        for nx, ny in zip(x["nodes"], y["nodes"]):
+            pose = max(pose, float(np.abs(np.subtract(nx["p"], ny["p"])).max()))
+            check(len(nx["lm"]) == len(ny["lm"]), f"live pages: node {nx['i']}'s landmark counts differ")
+            if ny["lm"]:
+                lm = max(lm, float(np.abs(np.subtract(nx["lm"], ny["lm"])).max()))
+    check(pose <= TOOLS_LIVE_TOL["pose"] and lm <= TOOLS_LIVE_TOL["landmark"],
+          f"live pages: poses {pose:.2e} and landmarks {lm:.2e} apart")
+    return f"{len(a)} delta chunks, node ids and edges equal, poses within {pose:.1e}, landmarks within {lm:.1e}"
+
+
+def compare_debug_dirs(a_npz: str, b_npz: str) -> tuple[str, int]:
+    """The two runs' debug PNGs: equal names, each image at least
+    TOOLS_MIN_EQUAL_PIXELS pixel-equal. Returns (text, images)."""
+    from PIL import Image
+
+    da, db = (os.path.splitext(p)[0] + "_debug" for p in (a_npz, b_npz))
+    names = sorted(os.listdir(da))
+    check(names == sorted(os.listdir(db)), "debug PNG names differ between the card and the CPU")
+    worst = 1.0
+    for name in names:
+        x, y = (np.asarray(Image.open(os.path.join(d, name))) for d in (da, db))
+        check(x.shape == y.shape, f"debug PNG {name}: shapes {x.shape} and {y.shape}")
+        worst = min(worst, float((x == y).all(-1).mean()))
+    check(worst >= TOOLS_MIN_EQUAL_PIXELS, f"debug PNGs: only {worst:.5f} of one image's pixels equal")
+    n_match = sum(n.startswith("match_") for n in names)
+    return (f"{len(names) - n_match} stereo + {n_match} match PNGs with equal names, the least-equal image "
+            f"{worst:.5f} pixel-equal"), len(names)
+
+
+def debug_host_ms(frames, dev) -> dict:
+    """--save_debug's host cost per keyframe, from a Frontend with debug
+    images on the card: the stereo lines' colours (np.random.default_rng per
+    match), the whole drawing (colours included), and the PNG encoding of
+    both images; medians over the keyframes."""
+    import dataclasses
+    import io
+
+    from PIL import Image
+
+    from vision_slam_frontend_tpu_torch.frontend import Frontend
+    from vision_slam_frontend_tpu_torch.viz import debug_images
+
+    fe = Frontend(dataclasses.replace(make_config("orb"), debug_images=True), device=dev)
+    for f in frames:
+        fe.observe_odometry(f.odom_translation, f.odom_rotation, f.timestamp)
+        fe.observe_image(f.left, f.right, f.timestamp)
+    nodes = {n.node_idx: n for n in fe.get_slam_problem().nodes}
+    colour, draw, png = [], [], []
+    for entry in fe.get_debug_data():
+        t0 = time.perf_counter()
+        for i in range(int(entry["result"].num_features)):
+            debug_images._line_color(i)
+        t1 = time.perf_counter()
+        images = [x for x in debug_images.render_debug_entry(entry, nodes) if x is not None]
+        t2 = time.perf_counter()
+        for x in images:
+            Image.fromarray(x).save(io.BytesIO(), format="PNG")
+        t3 = time.perf_counter()
+        colour.append((t1 - t0) * 1e3)
+        draw.append((t2 - t1) * 1e3)
+        png.append((t3 - t2) * 1e3)
+    return dict(keyframes=len(draw), colours_ms=statistics.median(colour), draw_ms=statistics.median(draw),
+                png_ms=statistics.median(png))
+
+
+def phase_tools_cli(ck, dev, tmp, frames, orb_npz: str, orb_launches: dict) -> tuple[dict, str, dict]:
+    """(a): the CLI on MAIN_INPUT with --visualize --save_debug on the card
+    (launch counts from that run) and on the CPU."""
+    out = {where: os.path.join(tmp, "tools", where, "run.npz") for where in ("card", "cpu")}
+    printed = {}
+    for where, device in (("card", str(dev)), ("cpu", "cpu")):
+        os.makedirs(os.path.dirname(out[where]))
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, printed[where] = run_cli_quiet(["--input", MAIN_INPUT, "--output", out[where], "--device", device,
+                                            *TOOLS_CLI_FLAGS])
+        check(rc == 0, f"the CLI with {TOOLS_CLI_FLAGS} on {device}: exit code {rc}")
+        if where == "card":
+            launches, card_s = dict(ck.LAUNCHES), time.perf_counter() - t0
+    for name in ("fast_scores_nms", "extract_patches", "hamming_top2", "patch_windows"):
+        check(launches[name] == orb_launches[name],
+              f"{name}: {launches[name]} launches with {TOOLS_CLI_FLAGS}, {orb_launches[name]} in phase 5's run")
+    streamed = [ln for ln in printed["card"].splitlines() if ln.startswith("Streamed ")]
+    check(len(streamed) == 1, "the CLI printed no 'Streamed ... debug images' line")
+    pngs, n_images = compare_debug_dirs(out["card"], out["cpu"])
+    live = compare_live(live_chunks(out["card"]), live_chunks(out["cpu"]))
+    same = same_problem("--visualize --save_debug against phase 5's run", out["card"], orb_npz)
+    host = debug_host_ms(frames, dev)
+    numbers = dict(card_seconds=card_s, images=n_images, launches=launches, **host)
+    line = (f"(a) the CLI on {MAIN_INPUT} with {' '.join(TOOLS_CLI_FLAGS)}, card ({card_s:.2f} s) and CPU: "
+            f"{streamed[0]} | {pngs} | live page: {live} | npz against phase 5's run: {same} | launches "
+            f"{launches}, equal to phase 5's | host per keyframe ({host['keyframes']} keyframes, medians): line "
+            f"colours {host['colours_ms']:.3f} ms, drawing {host['draw_ms']:.3f} ms (colours included), PNG "
+            f"encoding {host['png_ms']:.3f} ms")
+    return numbers, line, launches
+
+
+TOOLS_BAG_PROCESS = r"""
+import contextlib, io, json, sys
+from vision_slam_frontend_tpu_torch.cli.slam_frontend import main
+argv, extra = json.loads(sys.argv[1]), json.loads(sys.argv[2])
+runs = []
+for mode in ("warm-up", "plain", "debug"):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv + (extra if mode == "debug" else []))
+    runs.append({"mode": mode, "rc": rc, "printed": buf.getvalue()})
+print(json.dumps(runs))
+"""
+
+
+def phase_tools_bag(dev, tmp, card: str) -> tuple[dict, str]:
+    """(b): the CLI on phase 10 (c)'s bag in a process of its own: a
+    warm-up, then without --visualize --save_debug and with them (after the
+    plain run, so the peak RSS with them includes their own growth)."""
+    import re
+
+    bag, cfg = os.path.join(tmp, "rate.bag"), os.path.join(tmp, "rate.yaml")
+    check(os.path.exists(bag) and os.path.exists(cfg), "phase 10 (c)'s bag is gone")
+    argv = ["--input", bag, "--config", cfg, "--output", os.path.join(tmp, "tools_bag.npz"), "--device", str(dev)]
+    proc = subprocess.run([sys.executable, "-c", TOOLS_BAG_PROCESS, json.dumps(argv), json.dumps(TOOLS_CLI_FLAGS)],
+                          capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"tools bag process exit code {proc.returncode}: {proc.stderr[-2000:]}")
+    runs = []
+    for r in json.loads(proc.stdout.strip().splitlines()[-1]):
+        check(r["rc"] == 0, f"tools bag CLI ({r['mode']}) exit code {r['rc']}")
+        n = dict(mode=r["mode"], **rate_numbers(r["printed"]))
+        check(n["frames"] == RATE_FRAMES, f"tools bag CLI ({r['mode']}) saw {n['frames']} frames")
+        m = re.search(r"Streamed (\d+) match \+ (\d+) stereo debug images", r["printed"])
+        check((m is not None) == (r["mode"] == "debug"), f"tools bag CLI ({r['mode']}): Streamed line")
+        n["images"] = int(m.group(1)) + int(m.group(2)) if m else 0
+        runs.append(n)
+    measured = runs[1:]
+    rss = {mode: max(x["peak_rss_mb"] for x in measured if x["mode"] == mode) for mode in ("plain", "debug")}
+    ratio = rss["debug"] / rss["plain"]
+    check(ratio <= TOOLS_RSS_RATIO, f"--save_debug peak RSS {rss['debug']:.0f} MB against {rss['plain']:.0f} MB")
+    fps = {mode: next(x["fps"] for x in measured if x["mode"] == mode) for mode in ("plain", "debug")}
+    cost_ms = (1.0 / fps["debug"] - 1.0 / fps["plain"]) * 1e3
+    numbers = dict(runs=runs, peak_rss_ratio=ratio, debug_cost_ms_per_frame=cost_ms)
+    line = (f"(b) [{card}] the CLI on phase 10 (c)'s {RATE_FRAMES}-frame 640x480 bag in its own process, "
+            f"without and with {' '.join(TOOLS_CLI_FLAGS)}: " + "; ".join(
+                f"{x['mode']} {x['fps']:.2f} frames/s, latency ms p50 {x['p50_ms']} p99 {x['p99_ms']}, peak RSS "
+                f"{x['peak_rss_mb']:.0f} MB, {x['images']} images" for x in runs)
+            + f" | peak RSS with them {ratio:.3f} of without (limit {TOOLS_RSS_RATIO}); they cost {cost_ms:.2f} ms "
+            f"per frame ({fps['debug']:.2f} frames/s against {fps['plain']:.2f})")
+    return numbers, line
+
+
+def trace_kernels(path: str) -> list | None:
+    """The names of the CUDA kernels in a Chrome trace; None where it holds
+    no device kernel (the CUPTI trace missing)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    return names or None
+
+
+def stage_table(printed: str) -> dict:
+    """format_stage_table's rows as {name: ms}: the stages, "stage sum",
+    "fused keyframe step" and "  of which enqueue"."""
+    import re
+
+    rows = {}
+    for ln in printed.splitlines():
+        if ln.endswith("%") and not ln.startswith("stage "):
+            name, ms, _ = ln.rsplit(None, 2)
+            rows[name] = float(ms)
+        m = re.match(r"^(stage sum|fused keyframe step|  of which enqueue)\s+([\d.]+)", ln)
+        if m:
+            rows[m.group(1)] = float(m.group(2))
+    return rows
+
+
+def phase_tools_profile(ck, dev, tmp, card: str) -> tuple[dict, str, dict]:
+    """(c): profile_stages on the card with --trace_dir, and slam_frontend
+    --profile_dir."""
+    from vision_slam_frontend_tpu_torch.cli import profile_stages
+
+    trace_dir = os.path.join(tmp, "stage_trace")
+    ck.reset_launch_counts()
+    rc, printed = run_cli_quiet(["--max_features", "512", "--frame_life", "10", "--trace_dir", trace_dir,
+                                 "--device", str(dev)], main=profile_stages.main)
+    launches = dict(ck.LAUNCHES)
+    check(rc == 0, f"profile_stages exit code {rc}")
+    rows = stage_table(printed)
+    for s in STAGES:
+        check(rows.get(s, 0.0) > 0.0, f"profile_stages: stage {s!r} missing or not positive")
+    fused, enqueue = rows.get("fused keyframe step"), rows.get("  of which enqueue")
+    check((fused or 0) > 0 and ((enqueue or 0) > 0 or dev.type != "cuda"),  # enqueue time: CUDA only
+          "profile_stages: no synced or enqueue time of the step")
+    kernels = trace_kernels(os.path.join(trace_dir, profile_stages.TRACE_FILE))
+    found = None
+    if kernels is not None:
+        found = {name: any(KERNELS[name][2] in k for k in kernels)
+                 for name in ("fast_scores_nms", "extract_patches", "hamming_top2")}
+        check(all(found.values()), f"profile_stages trace: kernels {found}")
+    out = os.path.join(tmp, "profiled.npz")
+    prof_dir = os.path.join(tmp, "cli_trace")
+    rc, cli_printed = run_cli_quiet(["--input", TOOLS_PROFILE_INPUT, "--output", out, "--device", str(dev),
+                                     "--profile_dir", prof_dir])
+    check(rc == 0 and f"Wrote profiler trace to {prof_dir}" in cli_printed, f"slam_frontend --profile_dir: rc {rc}")
+    files = os.listdir(prof_dir)
+    check(len(files) == 1 and os.path.getsize(os.path.join(prof_dir, files[0])) > 0,
+          f"slam_frontend --profile_dir wrote {files}")
+    cli_kernels = trace_kernels(os.path.join(prof_dir, files[0]))
+    numbers = dict(stages=rows, fused_ms=fused, enqueue_ms=enqueue, trace_kernels=found,
+                   cli_trace_mb=os.path.getsize(os.path.join(prof_dir, files[0])) / 2**20,
+                   cli_trace_kernel_names=None if cli_kernels is None else len(cli_kernels))
+    line = (f"(c) [{card}] profile_stages (640x480, K=512, W=10): " + ", ".join(
+        f"{s.strip()} {rows[s]:.3f}" for s in STAGES) + f" ms; stage sum {rows.get('stage sum', 0):.3f} ms; step "
+        f"{fused:.3f} ms synced, {enqueue} ms enqueue | --trace_dir: " + (
+            "device kernels not measured (no CUDA kernel events in the trace)" if found is None else
+            "kernels " + ", ".join(KERNELS[k][2] for k in found) + " found") +
+        f" | slam_frontend --profile_dir on {TOOLS_PROFILE_INPUT}: {files[0]} ({numbers['cli_trace_mb']:.1f} MB, "
+        + ("no device kernels" if cli_kernels is None else f"{len(cli_kernels)} kernel names") + ")")
+    return numbers, line, launches
+
+
+def phase_tools_checks(frames, dev, card: str) -> tuple[dict, str]:
+    """(d): one full-width ORB keyframe_step under checkified, against the
+    plain step; a NaN pose; an out-of-range gather on the card."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.frontend.keyframe import StepParams
+    from vision_slam_frontend_tpu_torch.utils.checks import checkified
+
+    config = make_config("orb")
+    params = StepParams.from_config(config, dev)
+    inputs = step_inputs(frames[:2], dev)
+
+    def step(inp, checked):
+        state = new_state(config, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if checked:
+            err, out = checkified(run_step, params, state, inp, 0, config)
+        else:
+            err, out = None, run_step(params, state, inp, 0, config)
+        torch.cuda.synchronize()
+        return err, out, time.perf_counter() - t0
+
+    step(inputs[0], False)  # warm
+    _, (_, plain), plain_s = step(inputs[0], False)
+    err, (_, checked), checked_s = step(inputs[0], True)
+    check(err.get() is None, f"checkified clean step: {err.get()}")
+    n_fields = 0
+    for f in dataclasses.fields(plain):
+        a, b = getattr(checked, f.name), getattr(plain, f.name)
+        if not a.is_floating_point():
+            check_equal(f"checked step {f.name}", a, b)
+            n_fields += 1
+    left, right, t, q = inputs[0]
+    nan_t = t.clone()
+    nan_t[1] = float("nan")
+    err_nan, _, _ = step((left, right, nan_t, q), True)
+    check(err_nan.get() is not None and err_nan.get().startswith("nan generated by aten."),
+          f"checkified NaN pose: {err_nan.get()}")
+    err_oob, result = checkified(torch.gather, torch.arange(8.0, device=dev), 0, torch.tensor([1, 8], device=dev))
+    check(result is None and "out-of-bounds index" in (err_oob.get() or ""), f"out-of-range gather: {err_oob.get()}")
+    torch.cuda.synchronize()  # a device-side assert would raise here
+    _, (_, again), _ = step(inputs[0], False)
+    for f in dataclasses.fields(plain):
+        if not getattr(plain, f.name).is_floating_point():
+            check_equal(f"step after the gather {f.name}", getattr(again, f.name), getattr(plain, f.name))
+    numbers = dict(checked_s=checked_s, plain_s=plain_s, slowdown=checked_s / plain_s, nan_message=err_nan.get(),
+                   gather_message=err_oob.get())
+    line = (f"(d) [{card}] checkified ORB keyframe_step (640x480, K=512, W=10): no error, {n_fields} int and bool "
+            f"fields equal to the plain step; {checked_s:.3f} s checked against {plain_s * 1e3:.3f} ms plain "
+            f"({checked_s / plain_s:.0f}x) | NaN in curr_pose_t: '{err_nan.get()}' | out-of-range gather: "
+            f"'{err_oob.get()}', no device assert, and a plain step after it runs and matches")
+    return numbers, line
+
+
+def phase_tools_coupling(dev, card: str, phase7: dict) -> tuple[dict, str]:
+    """(e): backend/dense_plateau.coupling_trial on the card, beside phase 7's dense run."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend import dense_plateau
+
+    problem, cam, gt_t = dense_plateau.benchmark_problem(dev)
+    t0 = time.perf_counter()
+    trial = dense_plateau.coupling_trial(problem, cam, gt_t)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for name in ("compensated", "port_float32"):
+        check(np.isfinite(trial[name]["cost"]), f"coupling trial {name}: non-finite cost")
+
+    def text(r):
+        return (f"cost {r['cost']:.1f}, {r['accepted']} of {r['iterations']} accepted, rejected {r['rejected']}, "
+                f"ATE {r['ate']:.4f}, after step 1 {r['cost_after_step1']:.1f}")
+
+    d = phase7["dense"]
+    line = (f"(e) [{card}] coupling trial, dense LM at P={dense_plateau.SHAPE[0]} L={dense_plateau.SHAPE[1]} "
+            f"({seconds:.1f} s): compensated bf16 coupling {text(trial['compensated'])} | the port's float32 "
+            f"{text(trial['port_float32'])} | phase 7's dense run: cost {d['cost']:.1f}, {d['accepted']} of "
+            f"{d['iterations']} accepted, ATE {d['ate']:.4f} | the JAX package's CPU run: "
+            f"{text(trial['reference_cpu'])} | follows the reference: {trial['follows_reference']}")
+    return dict(trial, seconds=seconds), line
+
+
+def phase_tools(ck, dev, tmp, frames, orb_npz: str, orb_launches: dict, card: str, phase7: dict):
+    """Phase 12, one line per part as it ends; returns (numbers, {path: launches})."""
+    per_path = {}
+    numbers = {}
+    numbers["cli"], line, per_path["tools_cli"] = phase_tools_cli(ck, dev, tmp, frames, orb_npz, orb_launches)
+    say("12 tools", line)
+    numbers["bag"], line = phase_tools_bag(dev, tmp, card)
+    say("12 tools", line)
+    numbers["profile"], line, per_path["profile_stages"] = phase_tools_profile(ck, dev, tmp, card)
+    say("12 tools", line)
+    numbers["checks"], line = phase_tools_checks(frames, dev, card)
+    say("12 tools", line)
+    numbers["coupling"], line = phase_tools_coupling(dev, card, phase7)
+    say("12 tools", line)
+    return numbers, per_path
+
+
 def main() -> int:
     try:
         import torch
@@ -2728,14 +3100,21 @@ def main() -> int:
     say("9 golden", line)
     say("9 golden", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
-    inputs, input_paths = phase_inputs(ck, dev, smi)
+    inputs, input_paths = phase_inputs(ck, dev, smi, tmp_dir.name)
     per_path.update(input_paths)
     say("10 inputs", f"whole run so far {time.perf_counter() - t_start:.1f} s")
 
     parallel, per_path["parallel"] = phase_parallel(ck, dev, os.path.join(tmp_dir.name, "orb_gpu.npz"), tmp_dir.name,
                                                     smi, ba_numbers["scale"])
+    say("11 parallel", f"whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    t12 = time.perf_counter()
+    tools, tool_paths = phase_tools(ck, dev, tmp_dir.name, frames, os.path.join(tmp_dir.name, "orb_gpu.npz"),
+                                    per_path["orb"], smi, ba_numbers["scale"])
+    per_path.update(tool_paths)
+    tools["seconds"] = time.perf_counter() - t12
     tmp_dir.cleanup()
-    say("11 parallel", f"whole run {time.perf_counter() - t_start:.1f} s")
+    say("12 tools", f"phase 12 {tools['seconds']:.1f} s; whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
     print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
@@ -2743,7 +3122,7 @@ def main() -> int:
                                 for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
                       "launch_floor_ms": floor_ms,
                       "launches_per_path": per_path, "ba": ba_numbers, "local_ba": lba_numbers,
-                      "golden_loop": golden, "inputs": inputs, "parallel": parallel}), flush=True)
+                      "golden_loop": golden, "inputs": inputs, "parallel": parallel, "tools": tools}), flush=True)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])

@@ -261,6 +261,38 @@ def test_dense_plateau_floor_copy_is_the_solvers_terms(step_problem):
     assert set(dense_plateau.FLOORS.values()) == {0.0, 1e-6, 1e-5, 1e-4}
 
 
+def test_dense_plateau_coupling_is_the_jax_packages_compensated_product(step_problem):
+    """backend/dense_plateau's emulated coupling: each pair's 6x6 block from
+    bf16 hi/mid/lo parts (hh + mm + hm + mh + hl + lh, float32 sums) equals
+    the JAX package's _bbt_compensated on the same Bt within float32 sum-order
+    rounding (2e-6 of the largest entry); the dense step through that
+    assembly is a finite step of the solver's shape."""
+    from unittest import mock
+
+    from vision_slam_frontend_tpu_torch.backend import dense_plateau
+
+    rng = np.random.default_rng(21)
+    L, Ml, P = 7, 3, 5
+    Bt = (rng.normal(size=(L, Ml, 6, 3)) * 10.0 ** rng.uniform(-3, 4, size=(L, Ml, 6, 3))).astype(np.float32)
+    pose_of = np.stack([rng.permutation(P)[:Ml] for _ in range(L)])  # one slot per (landmark, pose)
+    oh = pose_of[:, :, None] == np.arange(P)[None, None, :]
+    theirs = np.asarray(jba._bbt_compensated(jnp.asarray(Bt), jnp.asarray(oh)))  # (6, P, 6, P)
+    ours = np.zeros((6, P, 6, P), np.float64)
+    Btt = torch.from_numpy(Bt)
+    for a in range(Ml):
+        for b in range(Ml):
+            C = dense_plateau.compensated_coupling(Btt[:, a], Btt[:, b]).double().numpy()  # (L, 6, 6)
+            for l in range(L):
+                ours[:, pose_of[l, a], :, pose_of[l, b]] += C[l]
+    close(ours, theirs, 2e-6, "coupling")
+    _, _, _, p, pm_t, lin_t = step_problem
+    with mock.patch.object(ba, "_dense_assemble", dense_plateau._dense_assemble_compensated):
+        d_pose, d_lm, _ = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
+    ref = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
+    assert d_pose.shape == ref[0].shape and bool(torch.isfinite(d_pose).all() and torch.isfinite(d_lm).all())
+    close(d_pose, ref[0].numpy(), 2e-2, "compensated d_pose")
+
+
 def test_scatter_pcg_equals_the_jax_packages():
     """Without gather tables: the flat linearization, and the scatter-sum PCG
     step at lambda 1 (24 CG iterations; measured 4.6e-5 / 9.2e-5 of the

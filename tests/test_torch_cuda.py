@@ -575,3 +575,39 @@ def test_local_ba_and_merge_refuse_cuda_without_a_gpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device is available"):
             call()
     assert merge_sessions([problem, problem], device="cpu")[1]["num_poses"] == 8
+
+
+@pytest.mark.cuda
+def test_checkified_step_on_the_card(cuda, frames):
+    """One ORB keyframe step on the card under utils/checks.checkified: no
+    error and the plain step's int and bool fields; with a NaN pose an error
+    naming an aten op; an out-of-range gather raises no device assert, and a
+    plain step after it still runs and matches."""
+    from vision_slam_frontend_tpu_torch.utils.checks import checkified
+
+    config = _config(max_features=512, frame_life=10)
+
+    def step(pose_t, checked):
+        args = (tkf.StepParams.from_config(config, cuda),
+                tkf.WindowState.create(10, 512, config.stereo_threshold_init, cuda),
+                torch.from_numpy(_u8(frames[0].left)).to(cuda), torch.from_numpy(_u8(frames[0].right)).to(cuda), 0)
+        kw = dict(capacity=512, window=10, curr_pose_t=torch.tensor(pose_t, device=cuda),
+                  curr_pose_q=torch.tensor([1.0, 0, 0, 0], device=cuda))
+        return checkified(tkf.keyframe_step, *args, **kw) if checked else tkf.keyframe_step(*args, **kw)
+
+    def int_fields_equal(a, b):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if not x.is_floating_point():
+                assert torch.equal(x, y), f.name
+
+    err, (_, checked) = step([0.0, 0.0, 0.0], True)
+    assert err.get() is None
+    _, plain = step([0.0, 0.0, 0.0], False)
+    int_fields_equal(checked, plain)
+    err, _ = step([0.0, float("nan"), 0.0], True)
+    assert err.get().startswith("nan generated by aten.")
+    err, result = checkified(torch.gather, torch.arange(4.0, device=cuda), 0, torch.tensor([1, 9], device=cuda))
+    assert result is None and "out-of-bounds index" in err.get()
+    _, again = step([0.0, 0.0, 0.0], False)
+    int_fields_equal(again, plain)

@@ -76,7 +76,10 @@ def test_port_and_chip_smoke_import_without_jax():
             "vision_slam_frontend_tpu_torch.viz.html", "vision_slam_frontend_tpu_torch.utils.yaml_subset",
             "vision_slam_frontend_tpu_torch.parallel.mesh", "vision_slam_frontend_tpu_torch.parallel.segment_ba",
             "vision_slam_frontend_tpu_torch.parallel.sharded_ba", "vision_slam_frontend_tpu_torch.parallel.comm_report",
-            "vision_slam_frontend_tpu_torch.parallel.multihost_smoke"} <= set(modules)
+            "vision_slam_frontend_tpu_torch.parallel.multihost_smoke", "vision_slam_frontend_tpu_torch.viz.live",
+            "vision_slam_frontend_tpu_torch.viz.debug_images", "vision_slam_frontend_tpu_torch.utils.profiling",
+            "vision_slam_frontend_tpu_torch.cli.profile_stages", "vision_slam_frontend_tpu_torch.geometry.se3",
+            "vision_slam_frontend_tpu_torch.utils.math"} <= set(modules)
     proc = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, *modules, str(ROOT / "chip_smoke.py")],
         capture_output=True, text=True, cwd=ROOT, timeout=300,

@@ -373,8 +373,7 @@ def test_config_rejects_options_not_ported():
     assert FrontendConfig(num_levels=3, descriptor_family="akaze").num_levels == 3  # ported now
     assert FrontendConfig(validate=True).validate  # ported now
     assert FrontendConfig(descriptor_family="sift").descriptor_family == "sift"  # ported now
-    with pytest.raises(NotImplementedError, match="debug_images"):
-        FrontendConfig(debug_images=True)
+    assert FrontendConfig(debug_images=True).debug_images  # ported now
     with pytest.raises(ValueError, match="unknown descriptor family"):
         FrontendConfig(descriptor_family="surf")
 

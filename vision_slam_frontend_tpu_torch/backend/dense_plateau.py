@@ -1,7 +1,7 @@
 """The dense-BA plateau study (ROADMAP C): at the BA benchmark's shape
 (P=500, L=100k, clean), dense LM stops above the ground-truth cost.
 
-Two measurements, on the device the caller names:
+Four measurements, on the device the caller names:
 - `first_step`: the first dense LM step at lambda 1e-3 in float32 against
   the same step with every tensor in float64 (the solver's arithmetic path);
 - `ridge_trial`: dense LM under each rule of RIDGES for the equilibrated
@@ -10,6 +10,13 @@ Two measurements, on the device the caller names:
 - `floor_trial`: dense LM under each of FLOORS for the landmarks' damping
   floor (ba._schur_terms' fixed 1e-5 of each landmark block's trace), in
   float32 and float64, on a copy of those terms; the solver keeps 1e-5.
+- `coupling_trial`: dense LM in float32 on a copy of ba._dense_assemble
+  whose coupling B B^T is the JAX package's compensated bf16 arithmetic
+  (backend/ba.py:603-664 there): Bt split into bf16 hi, mid and lo parts,
+  the six products hh + mm + hm + mh + hl + lh with float32 accumulation,
+  ml and ll dropped. Beside it the port's own float32 run and the JAX
+  package's CPU figures (REFERENCE_CPU). The solver keeps its float32
+  coupling.
 
 Run: python -m vision_slam_frontend_tpu_torch.backend.dense_plateau
 [--device cuda] (one JSON line per measurement; about a minute on an H100).
@@ -18,6 +25,7 @@ Run: python -m vision_slam_frontend_tpu_torch.backend.dense_plateau
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import sys
@@ -46,6 +54,13 @@ RIDGES = {
 
 # The landmarks' damping floor, as a fraction of each block's trace / 3.
 FLOORS = {"0": 0.0, "1e-6": 1e-6, "1e-5 (the solver's)": 1e-5, "1e-4": 1e-4}
+
+# The JAX package's dense LM at SHAPE on the CPU (its optimize with
+# BASolverConfig(max_iterations=25, schur_solver="dense", cg_iterations=32)
+# on bench_ba.make_problem(500, 100_000, 5, clean=True)): the figures
+# coupling_trial's emulated run is held against.
+REFERENCE_CPU = dict(cost=42_009.371, iterations=25, accepted=17, rejected=[4, 5, 6, 11, 17, 18, 20, 23],
+                     ate=0.02509, cost_after_step1=2_080_473.875)
 
 
 def benchmark_problem(device):
@@ -152,18 +167,67 @@ def _schur_terms_with_floor(floor: float):
     return terms
 
 
+def _split_bf16(x):
+    """x = hi + mid + lo, each part a bfloat16 value held in x's dtype (the
+    JAX package's three-way split of the coupling's Bt)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    r = x - hi
+    mid = r.to(torch.bfloat16).to(x.dtype)
+    return hi, mid, (r - mid).to(torch.bfloat16).to(x.dtype)
+
+
+def compensated_coupling(Ba, Bb):
+    """Each pair's 6x6 block Ba Bb^T (Ba, Bb: (n, 6, 3)) as the JAX
+    package's compensated bf16 products: hh + mm + hm + mh + hl + lh, each a
+    product of bfloat16 parts accumulated in float32 (exact products, float32
+    sums), ml and ll dropped, summed in its order."""
+    ha, ma, la = _split_bf16(Ba)
+    hb, mb, lb = _split_bf16(Bb)
+
+    def dot(x, y):
+        return torch.einsum("nic,njc->nij", x, y)
+
+    return dot(ha, hb) + dot(ma, mb) + dot(ha, mb) + dot(ma, hb) + dot(ha, lb) + dot(la, hb)
+
+
+def _dense_assemble_compensated(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan=None,
+                                block_poses=None):
+    """A copy of ba._dense_assemble whose coupling is compensated_coupling."""
+    P = problem.num_poses
+    L = problem.num_landmarks
+    t = ba._schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor=True)
+    lm_tbl, lm_mask = t["lm_tbl"], t["lm_mask"]
+    Mp, Ml = Jp_pm.shape[1], lm_tbl.shape[1]
+    Ginv = ba._inv_lower3(ba._chol3(t["V"]))
+    S4 = ba._s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j, block_poses)
+    W_pm = torch.einsum("pmij,pmik->pmjk", Jp_pm, Jl_pm)
+    W_lm = W_pm.reshape(P * Mp, 18)[lm_tbl].reshape(L, Ml, 6, 3) * lm_mask[..., None]
+    Bt = torch.einsum("lmij,lcj->lmic", W_lm, Ginv)
+    lm, a, bb, target = ba._dense_coupling_plan(problem, block_poses) if plan is None else plan
+    C = compensated_coupling(Bt[lm, a], Bt[lm, bb])
+    ba._scatter_add_(S4.view(P * S4.shape[1], 36), target, -C.reshape(-1, 36))
+    return S4, t["b"], t["free"], t["V_inv"], t["g_lm"]
+
+
+def _lm_figures(problem, cam, gt_t, patch: tuple[str, object] | None = None) -> dict:
+    """Dense LM at the benchmark's settings, with `ba.<patch[0]>` replaced
+    where a patch is given: {cost, iterations, accepted, rejected (the
+    1-based iterations whose step was refused), ate, cost_after_step1 (the
+    cost history's second entry)}."""
+    solver = ba.BASolverConfig(max_iterations=ITERATIONS, schur_solver="dense", cg_iterations=CG_ITERATIONS)
+    with mock.patch.object(ba, *patch) if patch else contextlib.nullcontext():
+        opt, info = ba.optimize(problem, cam=cam, solver=solver)
+    h = info["history"]
+    return dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
+                rejected=[i for i in range(1, len(h)) if h[i] == h[i - 1]],
+                ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t), cost_after_step1=h[1])
+
+
 def _dense_lm(problem, cam, gt_t, patch: tuple[str, object]) -> dict:
     """Dense LM at the benchmark's settings with `ba.<patch[0]>` replaced,
-    in float32 and float64: {dtype: {cost, iterations, accepted, ate}}."""
+    in float32 and float64: {dtype: _lm_figures}."""
     runs = {"float32": (problem, cam), "float64": to_float64(problem, cam)}
-    solver = ba.BASolverConfig(max_iterations=ITERATIONS, schur_solver="dense", cg_iterations=CG_ITERATIONS)
-    out = {}
-    for dtype, (p, c) in runs.items():
-        with mock.patch.object(ba, *patch):
-            opt, info = ba.optimize(p, cam=c, solver=solver)
-        out[dtype] = dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
-                          ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t))
-    return out
+    return {dtype: _lm_figures(p, c, gt_t, patch) for dtype, (p, c) in runs.items()}
 
 
 def ridge_trial(problem, cam, gt_t) -> dict:
@@ -180,6 +244,20 @@ def floor_trial(problem, cam, gt_t) -> dict:
             for name, floor in FLOORS.items()}
 
 
+def coupling_trial(problem, cam, gt_t) -> dict:
+    """Dense LM in float32 with the JAX package's compensated bf16 coupling
+    (`compensated`) beside the port's float32 coupling (`port_float32`) and
+    the JAX package's CPU figures (`reference_cpu`). `follows_reference`:
+    the emulated run rejects iterations 4 to 6, runs all ITERATIONS, and
+    ends within 1% of the reference's cost."""
+    out = dict(compensated=_lm_figures(problem, cam, gt_t, ("_dense_assemble", _dense_assemble_compensated)),
+               port_float32=_lm_figures(problem, cam, gt_t), reference_cpu=REFERENCE_CPU)
+    em = out["compensated"]
+    out["follows_reference"] = bool({4, 5, 6} <= set(em["rejected"]) and em["iterations"] == ITERATIONS
+                                    and abs(em["cost"] - REFERENCE_CPU["cost"]) <= 0.01 * REFERENCE_CPU["cost"])
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
@@ -191,6 +269,8 @@ def main(argv=None) -> int:
                       "ridges": ridge_trial(problem, cam, gt_t)}), flush=True)
     print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
                       "landmark_floors": floor_trial(problem, cam, gt_t)}), flush=True)
+    print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
+                      "coupling": coupling_trial(problem, cam, gt_t)}), flush=True)
     return 0
 
 

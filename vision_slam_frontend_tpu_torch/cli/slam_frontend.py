@@ -9,7 +9,8 @@ Usage:
       [--no_prefetch] [--output_bag out.bag] [--ply map.ply] [--html map.html] \
       [--descriptor_family orb|brisk|freak|akaze|sift] [--local_ba 8] \
       [--checkpoint_every N] [--resume CKPT] [--interrupt_after N] \
-      [--validate] [-v 2]
+      [--validate] [--visualize [--visualize_every N]] [--save_debug] \
+      [--profile_dir DIR] [-v 2]
 
 Inputs: a ROS1 bag (stereo sensor_msgs/CompressedImage topics paired by equal
 stamps, nav_msgs/Odometry; read by the native C++ scanner where it is built,
@@ -40,6 +41,16 @@ checks every keyframe's outputs (utils/checks.py) as it is fetched.
 `--output_bag` also writes the reference-format ROS bag (extrinsics,
 intrinsics, slam_problem topics), `--ply` a pose-graph + landmark PLY and
 `--html` a standalone viewer.
+
+`--visualize` appends each keyframe's delta to the auto-refreshing page
+`<output>_live.html` (every `--visualize_every` keyframes, and once more at
+the end); it reads the frontend's materialized problem, so the one-deep
+pipeline is not flushed. `--save_debug` writes each keyframe's stereo and
+match debug images to `<output>_debug/stereo_%05d.png` and `match_%05d.png`
+as the keyframe is materialized (memory stays flat). `--profile_dir DIR`
+records a torch.profiler trace of the run (CPU and, on a GPU, CUDA
+activity) and writes it to DIR as a Chrome trace. None of them changes the
+saved npz.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ import numpy as np
 
 from vision_slam_frontend_tpu_torch.backend.local_ba import LocalBAState, windowed_local_ba
 from vision_slam_frontend_tpu_torch.utils.device import resolve_device
+from vision_slam_frontend_tpu_torch.utils.profiling import start_trace, write_trace
 
 
 def iter_synthetic(spec: str):
@@ -199,6 +211,8 @@ def make_config(args, dataset: str):
         overrides["descriptor_family"] = args.descriptor_family
     if args.validate:
         overrides["validate"] = True
+    if args.save_debug:
+        overrides["debug_images"] = True
     if args.config:
         return dataclasses.replace(FrontendConfig.load(args.config), **overrides)
     if dataset == "synthetic":
@@ -340,6 +354,20 @@ def build_parser() -> argparse.ArgumentParser:
         help="raise SIGINT after N stereo frames (a deterministic test of the "
         "graceful-interrupt path; 0 = off)",
     )
+    p.add_argument(
+        "--visualize", action="store_true",
+        help="live visualization: append each keyframe to <output>_live.html, an auto-refreshing "
+        "pose-graph and landmark viewer",
+    )
+    p.add_argument("--visualize_every", type=int, default=1,
+                   help="update the live viewer every N keyframes (with --visualize)")
+    p.add_argument(
+        "--save_debug", action="store_true",
+        help="write each keyframe's stereo and match debug images to <output>_debug/ as they are "
+        "produced (memory stays flat)",
+    )
+    p.add_argument("--profile_dir", default=None,
+                   help="record a torch.profiler trace of the run into this directory (Chrome trace)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("-v", "--verbosity", type=int, default=0)
     return p
@@ -356,6 +384,17 @@ def main(argv=None) -> int:
     events = make_events(args, dataset)
     frontend = Frontend(config, device=device)
     frontend.verbosity = args.verbosity
+    base = os.path.splitext(args.output)[0]
+    viewer = None
+    if args.visualize:
+        from vision_slam_frontend_tpu_torch.viz.live import IncrementalLiveViewer
+
+        viewer = IncrementalLiveViewer(base + "_live.html", config.left_cam_to_robot, every=args.visualize_every)
+        print(f"Live viewer: open {viewer.path} in a browser (auto-refreshes)")
+    if args.save_debug:
+        from vision_slam_frontend_tpu_torch.viz.live import DebugImageStreamer
+
+        frontend.debug_sink = DebugImageStreamer(base + "_debug")
     resume_t = -float("inf")
     if args.resume:
         resume_t = frontend.load_checkpoint(args.resume)
@@ -384,7 +423,8 @@ def main(argv=None) -> int:
     except ValueError:  # not the main thread: no handler
         prev_sigint, installed = None, False
     try:
-        return _run(args, dataset, device, config, frontend, events, resume_t, ckpt_path, lambda: interrupted)
+        return _run(args, dataset, device, config, frontend, events, resume_t, ckpt_path, lambda: interrupted,
+                    viewer)
     finally:
         if hasattr(events, "close"):
             events.close()  # stops a decode-ahead thread
@@ -392,10 +432,11 @@ def main(argv=None) -> int:
             signal.signal(signal.SIGINT, prev_sigint or signal.SIG_DFL)
 
 
-def _run(args, dataset, device, config, frontend, events, resume_t: float, ckpt_path: str, interrupted) -> int:
+def _run(args, dataset, device, config, frontend, events, resume_t: float, ckpt_path: str, interrupted,
+         viewer=None) -> int:
     """The CLI's event loop and epilogue; `interrupted()` reads the SIGINT
-    flag. Returns the exit code (130 after an interrupt, 1 when the input
-    cannot be read)."""
+    flag; `viewer` is the live viewer of --visualize. Returns the exit code
+    (130 after an interrupt, 1 when the input cannot be read)."""
     from vision_slam_frontend_tpu_torch.io.serialize import save_problem
 
     try:
@@ -407,6 +448,7 @@ def _run(args, dataset, device, config, frontend, events, resume_t: float, ckpt_
         print(f"Unable to read {args.input}, reason:\n no events found")
         return 1
     print(f"Processing {args.input} on {device}")
+    prof = start_trace(device) if args.profile_dir else None
     t_start = time.perf_counter()
     frames_seen = 0
     n_poses = last_ckpt_poses = frontend.get_num_poses()
@@ -433,6 +475,8 @@ def _run(args, dataset, device, config, frontend, events, resume_t: float, ckpt_
         # one-deep result pipeline every frame.
         if added:
             n_poses += 1
+        if added and viewer is not None:
+            viewer.update(frontend)  # the materialized problem: no pipeline flush
         if added and local_ba is not None and n_poses >= 4:
             t_lba = time.perf_counter()
             # Pipelined one keyframe deep: apply keyframe k-1's solve (its
@@ -467,6 +511,8 @@ def _run(args, dataset, device, config, frontend, events, resume_t: float, ckpt_
     problem = frontend.get_slam_problem()  # waits for the last keyframe
     t_end = time.perf_counter()
     elapsed = t_end - t_start
+    if prof is not None:
+        write_trace(prof, args.profile_dir, "slam_frontend_trace.json")
     print("Done processing bag file." if dataset == "bag" else "Done processing input.")
 
     save_problem(args.output, problem, config=config, node_track_ids=frontend.node_track_ids)
@@ -503,6 +549,12 @@ def _run(args, dataset, device, config, frontend, events, resume_t: float, ckpt_
         from vision_slam_frontend_tpu_torch.viz.html import export_html
 
         print(f"Wrote {args.html}: {export_html(args.html, problem, config.left_cam_to_robot)}")
+    if args.save_debug:
+        sink = frontend.debug_sink
+        print(f"Streamed {sink.num_match} match + {sink.num_stereo} stereo debug images to {sink.directory}/")
+    if viewer is not None:
+        viewer.update(frontend, force=True)  # the last keyframe's delta
+        print(f"Live viewer final state: {viewer.path} ({viewer.last_stats})")
     return 130 if interrupted() else 0  # 130: interrupted, by convention
 
 

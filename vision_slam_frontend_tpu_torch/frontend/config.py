@@ -4,8 +4,7 @@ Same fields, defaults and derived matrices as the JAX package's
 FrontendConfig, computed with numpy, so the port runs where JAX is not
 installed. `load` and `save` read and write the JAX package's YAML through
 utils/yaml_subset.py, so they need no PyYAML: a config saved by either
-package loads in the other. Debug images are not ported yet: asking for them
-raises NotImplementedError.
+package loads in the other.
 """
 
 from __future__ import annotations
@@ -65,7 +64,7 @@ class FrontendConfig:
     fast_threshold: float = 10.0
     stereo_threshold_init: float = 10000.0      # adaptive epipolar gate seed
     stereo_threshold_padding: float = 2.0       # running-average padding
-    debug_images: bool = False                  # not ported yet
+    debug_images: bool = False                  # keep per-keyframe debug entries (viz/debug_images)
     validate: bool = False                      # check every keyframe (synchronous fetch)
     mutual_check: bool = True                   # one-to-one temporal matching
     guided_match_radius: float = 40.0           # px; <= 0 disables the guided gate
@@ -94,8 +93,6 @@ class FrontendConfig:
 
     def __post_init__(self):
         get_family(self.descriptor_family)
-        if self.debug_images:
-            raise NotImplementedError("FrontendConfig option debug_images is not ported yet")
         c = self.calib
         self.intrinsics_left = Intrinsics.create(**c["intrinsics_left"])
         self.intrinsics_right = Intrinsics.create(**c["intrinsics_right"])

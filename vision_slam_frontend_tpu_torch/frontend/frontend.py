@@ -9,9 +9,12 @@ pinned host memory behind a CUDA event, and they are read when keyframe
 k + 1 arrives (or when an accessor asks), so the device never waits for the
 host between keyframes. With `validate` the fetch is synchronous instead, and
 each keyframe is checked (utils/checks.check_keyframe_result) before it is
-accumulated. `save_checkpoint` / `load_checkpoint` write and read the JAX
-package's checkpoint npz, so a run checkpointed by either package resumes in
-the other.
+accumulated. With `debug_images` the raw pixels and host copies of the two
+images ride in the same pending slot, and each keyframe's debug entry is
+handed to `debug_sink` (viz/live.DebugImageStreamer writes PNGs) when the
+keyframe is materialized, or buffered for `get_debug_data`.
+`save_checkpoint` / `load_checkpoint` write and read the JAX package's
+checkpoint npz, so a run checkpointed by either package resumes in the other.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ _HOST_FIELDS = (
     "window_curr_idx", "window_matched", "window_frame_id", "num_features",
     "num_stereo_candidates", "stereo_threshold",
 )
-# ... and, in validate mode, the raw pixels the checks bound to the image.
+# ... and, in validate or debug-image mode, the raw pixels (the checks bound
+# them to the image; viz/debug_images draws them).
 _VALIDATE_FIELDS = _HOST_FIELDS + ("pixels_raw", "right_pixels_raw")
 
 
@@ -88,10 +92,15 @@ class Frontend:
         self._odometry_factors: List[OdometryFactor] = []
         self._node_track_ids: List[np.ndarray] = []
         self._stats: List[dict] = []
+        self._debug_data: List[dict] = []
         self.verbosity = 0
         # (host context, {field: host tensor}, CUDA event or None) of the
         # newest keyframe; every public accessor flushes it first.
         self._pending = None
+        # With debug_images: callable(entry, frontend) taking each keyframe's
+        # debug entry as it is materialized instead of buffering it, so
+        # memory stays flat on long runs.
+        self.debug_sink = None
 
     # ------------------------------------------------------------------
     # Observation API
@@ -175,9 +184,13 @@ class Frontend:
             "prev_odom_q": self._prev_odom_q.copy(),
             "image_shape": tuple(np.shape(left_image)[:2]),
         }
+        if self.config.debug_images:
+            ctx["left_image"] = self._host_image(left_image)
+            ctx["right_image"] = self._host_image(right_image)
         # Pipeline one deep: materialize keyframe k-1 while k computes.
         self._flush_pending()
-        fields = _VALIDATE_FIELDS if self.config.validate else _HOST_FIELDS
+        raw = self.config.validate or self.config.debug_images
+        fields = _VALIDATE_FIELDS if raw else _HOST_FIELDS
         host = {f: getattr(result, f).to("cpu", non_blocking=True) for f in fields}
         event = None
         if self.device.type == "cuda":
@@ -192,6 +205,18 @@ class Frontend:
         self._curr_frame_id += 1
         return True
 
+    @staticmethod
+    def _host_image(img):
+        """A debug copy of an input image: the array itself for host input
+        (drawn as the JAX package draws it); for a device tensor, a
+        non-blocking copy into pinned memory that the pending slot's event
+        covers."""
+        if not isinstance(img, torch.Tensor):
+            return np.asarray(img)
+        if img.device.type == "cpu":
+            return img.numpy().copy()
+        return img.to("cpu", non_blocking=True)
+
     def _flush_pending(self) -> None:
         if self._pending is None:
             return
@@ -199,6 +224,9 @@ class Frontend:
         self._pending = None
         if event is not None:
             event.synchronize()
+        for key in ("left_image", "right_image"):
+            if isinstance(ctx.get(key), torch.Tensor):
+                ctx[key] = ctx[key].numpy()
         fields = dict.fromkeys(f.name for f in dataclasses.fields(KeyframeResult))
         fields.update({k: v.numpy() for k, v in host.items()})
         self._materialize(ctx, KeyframeResult(**fields))
@@ -226,6 +254,12 @@ class Frontend:
                 f"epipolar gate {float(r.stereo_threshold):.1f}), window matches "
                 f"{matched_per_slot.tolist()}"
             )
+        if self.config.debug_images:
+            entry = {"frame_id": fid, "left_image": ctx["left_image"], "right_image": ctx["right_image"], "result": r}
+            if self.debug_sink is not None:
+                self.debug_sink(entry, self)
+            else:
+                self._debug_data.append(entry)
 
     def _accumulate(self, fid: int, r: KeyframeResult, ctx: dict) -> None:
         """Convert one keyframe's outputs into problem entries."""
@@ -364,6 +398,12 @@ class Frontend:
     # Output API
     # ------------------------------------------------------------------
 
+    def peek_accumulated(self):
+        """(nodes, vision_factors, odometry_factors) as materialized so far,
+        without flushing the pipeline: one keyframe behind the device at
+        most. The live viewer reads its deltas here."""
+        return self._nodes, self._vision_factors, self._odometry_factors
+
     def get_slam_problem(self) -> SLAMProblem:
         self._flush_pending()
         return SLAMProblem(
@@ -404,6 +444,9 @@ class Frontend:
             node.pose.angle = q.copy()
         return len(self._nodes)
 
+    def get_config(self) -> FrontendConfig:
+        return self.config
+
     @property
     def node_track_ids(self) -> List[np.ndarray]:
         """Per-node persistent track ids."""
@@ -430,3 +473,12 @@ class Frontend:
             "stereo_survival_mean": float(np.mean([f / max(c, 1) for f, c in zip(feats, cands)])),
             "stereo_threshold_last": self._stats[-1]["stereo_threshold"],
         }
+
+    def get_debug_data(self) -> List[dict]:
+        """The buffered debug entries (empty while a debug_sink is set)."""
+        self._flush_pending()
+        return self._debug_data
+
+    def get_last_debug_data(self) -> Optional[dict]:
+        self._flush_pending()
+        return self._debug_data[-1] if self._debug_data else None

@@ -67,6 +67,43 @@ def undistort_points(intr: Intrinsics, pixels: torch.Tensor, num_iters: int = 8)
     return torch.stack([x * intr.fx + intr.cx, y * intr.fy + intr.cy], dim=-1)
 
 
+def _focal_centre(intr: Intrinsics, like: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(fx, fy) and (cx, cy) as float32 tensors on `like`'s device."""
+    f = torch.tensor([intr.fx, intr.fy], dtype=torch.float32, device=like.device)
+    c = torch.tensor([intr.cx, intr.cy], dtype=torch.float32, device=like.device)
+    return f, c
+
+
+def _distort_normalized(intr: Intrinsics, xn: torch.Tensor) -> torch.Tensor:
+    """Radial + tangential distortion of normalized coords (..., 2)."""
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (intr.k1 + r2 * (intr.k2 + r2 * intr.k3))
+    xy2 = 2.0 * x * y
+    xd = x * radial + intr.p1 * xy2 + intr.p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + intr.p1 * (r2 + 2.0 * y * y) + intr.p2 * xy2
+    return torch.stack([xd, yd], dim=-1)
+
+
+def distort_points(intr: Intrinsics, pixels_ideal: torch.Tensor) -> torch.Tensor:
+    """Ideal (undistorted) pixel coords (..., 2) -> observed (distorted)."""
+    f, c = _focal_centre(intr, pixels_ideal)
+    return _distort_normalized(intr, (pixels_ideal - c) / f) * f + c
+
+
+def project_points(intr: Intrinsics, points_cam: torch.Tensor, distort: bool = False) -> torch.Tensor:
+    """Camera-frame 3D points (..., 3) -> pixel coords (..., 2). |z| below
+    1e-9 is held at +-1e-9 (its sign kept); `distort` applies the lens
+    model."""
+    z = points_cam[..., 2:3]
+    zsafe = torch.where(z.abs() < 1e-9, torch.where(z < 0, -1e-9, 1e-9), z)
+    xn = points_cam[..., :2] / zsafe
+    if distort:
+        xn = _distort_normalized(intr, xn)
+    f, c = _focal_centre(intr, points_cam)
+    return xn * f + c
+
+
 def _unit_rows(r: torch.Tensor) -> torch.Tensor:
     """Rows of a (..., 4) tensor scaled to unit length (norms below 1e-12
     clamp), the squares summed in a fixed order."""

@@ -13,6 +13,11 @@ import torch
 _EPS = 1e-12
 
 
+def quat_identity(dtype: torch.dtype = torch.float32, device=None) -> torch.Tensor:
+    """Identity quaternion [1, 0, 0, 0]."""
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     """Normalize to a unit quaternion; guards the zero quaternion."""
     return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp(min=_EPS)
@@ -120,3 +125,18 @@ def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
     # angle/vnorm ~ 2/w for small angles.
     k = torch.where(small, 2.0 / w.clamp(min=_EPS), angle / vnorm.clamp(min=_EPS))
     return v * k
+
+
+def axis_angle_to_matrix(aa: torch.Tensor) -> torch.Tensor:
+    return quat_to_matrix(axis_angle_to_quat(aa))
+
+
+def matrix_to_axis_angle(m: torch.Tensor) -> torch.Tensor:
+    return quat_to_axis_angle(matrix_to_quat(m))
+
+
+def quat_angular_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Angle (radians) of the relative rotation between two unit
+    quaternions (Eigen's angularDistance, the keyframe gate's measure)."""
+    d = torch.sum(quat_normalize(a) * quat_normalize(b), dim=-1).abs()
+    return 2.0 * torch.arccos(d.clamp(0.0, 1.0))

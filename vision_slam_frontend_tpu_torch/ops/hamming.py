@@ -70,6 +70,17 @@ def _top2(desc_q: torch.Tensor, desc_t: torch.Tensor, valid_t: torch.Tensor):
     return (*hamming_top2(desc_q, desc_t, valid_t), float(desc_q.shape[1] * 32))
 
 
+def hamming_distance_matrix(bits_q: torch.Tensor, bits_t: torch.Tensor) -> torch.Tensor:
+    """Pairwise Hamming distances of unpacked {0, 1} descriptor rows:
+    bits_q (..., Kq, B), bits_t (Kt, B) -> (..., Kq, Kt) float32, as pop
+    counts minus twice a float32 product (exact: every partial sum of 0/1
+    products is an integer below 2^24)."""
+    q = bits_q.to(torch.float32)
+    t = bits_t.to(torch.float32)
+    cross = torch.matmul(q, t.T)
+    return q.sum(-1)[..., :, None] + t.sum(-1)[None, :] - 2.0 * cross
+
+
 def ratio_test_match(
     desc_q: torch.Tensor,
     valid_q: torch.Tensor,

@@ -92,6 +92,33 @@ class SLAMProblem:
         )
 
 
+@dataclasses.dataclass
+class SLAMNodeSolution:
+    """Solution container a backend fills in: pose = [tx, ty, tz, ax, ay,
+    az] with the rotation in scaled axis-angle (the reference's layout,
+    without its +0.02 seed perturbation of pose[5])."""
+
+    node_idx: int
+    timestamp: float
+    pose: np.ndarray  # (6,)
+    inverse_depths: np.ndarray  # (num_features,)
+    point_in_map: np.ndarray  # (num_features,) bool
+
+    @classmethod
+    def from_node(cls, node: SLAMNode) -> "SLAMNodeSolution":
+        from vision_slam_frontend_tpu_torch.utils.np_geom import quat_to_axis_angle
+
+        aa = quat_to_axis_angle(np.asarray(node.pose.angle, np.float32))
+        nf = len(node.features)
+        return cls(
+            node_idx=node.node_idx,
+            timestamp=node.timestamp,
+            pose=np.concatenate([np.asarray(node.pose.loc, np.float64), aa.astype(np.float64)]),
+            inverse_depths=np.ones(nf, np.float64),
+            point_in_map=np.zeros(nf, bool),
+        )
+
+
 # Index fields: int64 tensors in the port (torch's gathers want int64), int32
 # arrays in the JAX package's numpy form and npz files.
 _INDEX_FIELDS = ("obs_pose", "obs_landmark", "odom_i", "odom_j", "pose_obs", "lm_obs")
