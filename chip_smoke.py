@@ -159,9 +159,23 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               aten op, an out-of-range gather raising no device assert (a
               plain step after it still matches), checked against plain
               seconds; (e) backend/dense_plateau.coupling_trial (ROADMAP C)
-              beside phase 7's dense run
+              beside phase 7's dense run, then placement_trial (the
+              reference's bf16 placement of repeated (landmark, pose) slots)
+              and schedule_trial (one dense step at each lambda from 1e-9 to
+              1e4 at the float32 run's stop), each beside ROADMAP C's CPU
+              figures (a record: nothing new is held)
+ 13. api      the reference's two-step API and switches at full width
+              (640x480, K=512, ORB, one synthetic frame; 448 FAST or random
+              keypoints, every 17th invalid, and 64 keypoints 3-14 px from
+              the edges), card against CPU on the same inputs:
+              compute_orientations (angles within API_THETA_ATOL, bins
+              equal), brief_describe under "gather", "mxu" and "auto" (words
+              equal), brief.extract_patches at (H, W) and (H, W, 3) (exact),
+              fast_detect(nms=False) and ORB detect_and_describe(nms=False)
+              (int and bool fields equal, float differences printed); the
+              launch counts of each call on the card, held to API_LAUNCHES
 Then a JSON line of every kernel shape's numbers and the BA, local-BA,
-golden-loop, input, parallel and tools numbers, the kernels JSON line and,
+golden-loop, input, parallel, tools and api numbers, the kernels JSON line and,
 last, the result line.
 """
 
@@ -280,6 +294,23 @@ DIST_SEG_RTOL = 1e-2  # dense too
 DIST_TIMEOUT_S = 600
 
 # The H100's published peaks (NVIDIA data sheet, SXM, dense, 700 W).
+# Phase 13: the card's angles against the CPU's, and each call's kernel
+# launches on the card (B1 fast_scores_nms, B2 extract_patches; the Hamming
+# and window kernels are never launched there).
+API_THETA_ATOL = 1e-6
+API_KEYPOINTS = 512
+API_EDGE_KEYPOINTS = 64
+API_LAUNCHES = {
+    "compute_orientations": {"extract_patches": 1},
+    "brief_describe gather": {},
+    "brief_describe mxu": {"extract_patches": 1},
+    "brief_describe auto": {},
+    "extract_patches (H, W)": {"extract_patches": 1},
+    "extract_patches (H, W, 3)": {"extract_patches": 1},
+    "fast_detect nms=False": {"fast_scores_nms": 1},
+    "detect_and_describe nms=False": {"fast_scores_nms": 1, "extract_patches": 1},
+}
+
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 # Issue rates per SM per clock (Hopper): min/max (FMNMX) at half the FP32
@@ -2985,6 +3016,36 @@ def phase_tools_coupling(dev, card: str, phase7: dict) -> tuple[dict, str]:
     return dict(trial, seconds=seconds), line
 
 
+def phase_tools_plateau(dev, card: str) -> tuple[dict, str]:
+    """(e), continued: backend/dense_plateau.placement_trial and
+    schedule_trial on the card, beside ROADMAP C's CPU figures."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend import dense_plateau
+
+    problem, cam, gt_t = dense_plateau.benchmark_problem(dev)
+    t0 = time.perf_counter()
+    placement = dense_plateau.placement_trial(problem, cam, gt_t)
+    schedule = dense_plateau.schedule_trial(problem, cam, gt_t)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(np.isfinite(placement["placed"]["cost"]) and np.isfinite(schedule["stop"]["cost"]),
+          "placement or schedule trial: non-finite cost")
+    r, cpu = placement["placed"], dense_plateau.PLACEMENT_CPU
+    st, scpu = schedule["stop"], dense_plateau.SCHEDULE_CPU
+    sweep = ", ".join(f"{lam:.0e}: {c:.3f}" for lam, c in zip(schedule["lambdas"], schedule["cost_after_step"]))
+    line = (f"(e) [{card}] placement trial ({placement['repeated_slots']} repeated (landmark, pose) slots): cost "
+            f"{r['cost']:.1f}, {r['accepted']} of {r['iterations']} accepted, rejected {r['rejected']}, ATE "
+            f"{r['ate']:.4f}, follows the reference: {placement['follows_reference']} | ROADMAP C's CPU run: cost "
+            f"{cpu['cost']:.1f}, {cpu['accepted']} of {cpu['iterations']} accepted, rejected {cpu['rejected']}, ATE "
+            f"{cpu['ate']:.4f} | schedule trial: the float32 run stops at {st['cost']:.1f} after "
+            f"{st['iterations']} iterations (rejected {st['rejected']}); one step from there, cost by lambda: "
+            f"{sweep}; lowest lambda that lowers the cost: {schedule['accepted_from']} | ROADMAP C's CPU run: stops "
+            f"at {scpu['stop_cost']:.1f}, the reference from that state accepted first at lambda "
+            f"{scpu['reference_accepted_at']} ({seconds:.1f} s)")
+    return dict(placement=placement, schedule=schedule, seconds=seconds), line
+
+
 def phase_tools(ck, dev, tmp, frames, orb_npz: str, orb_launches: dict, card: str, phase7: dict):
     """Phase 12, one line per part as it ends; returns (numbers, {path: launches})."""
     per_path = {}
@@ -2999,7 +3060,98 @@ def phase_tools(ck, dev, tmp, frames, orb_npz: str, orb_launches: dict, card: st
     say("12 tools", line)
     numbers["coupling"], line = phase_tools_coupling(dev, card, phase7)
     say("12 tools", line)
+    numbers["plateau"], line = phase_tools_plateau(dev, card)
+    say("12 tools", line)
     return numbers, per_path
+
+
+def api_inputs(frame):
+    """(u8 image, blurred f32 image, keypoints (K, 2), valid (K,)) on the
+    CPU: the frame's FAST corners, the empty slots filled with random points
+    19 px or more inside, every 17th invalid, then API_EDGE_KEYPOINTS valid
+    keypoints 3 to 14 px from the four edges."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.ops.fast import fast_detect
+    from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur
+
+    img = torch.from_numpy(u8(frame.left))
+    H, W = img.shape
+    n = API_KEYPOINTS - API_EDGE_KEYPOINTS
+    kps, _, valid = fast_detect(img, threshold=12.0, max_keypoints=n, border=19)
+    rng = np.random.default_rng(7)
+    fill = torch.from_numpy(rng.uniform([19, 19], [W - 20, H - 20], (n, 2)).astype(np.float32))
+    kps = torch.where(valid[:, None], kps, fill)
+    m = API_EDGE_KEYPOINTS // 4
+    dist = np.tile(np.arange(3, 15), m // 12 + 1)[:m] + rng.uniform(-0.3, 0.3, m)
+    along_x, along_y = rng.uniform(20, W - 20, m), rng.uniform(20, H - 20, m)
+    edge = np.concatenate([np.stack([dist, along_y], 1), np.stack([W - 1 - dist, along_y], 1),
+                           np.stack([along_x, dist], 1), np.stack([along_x, H - 1 - dist], 1)]).astype(np.float32)
+    kps = torch.cat([kps, torch.from_numpy(edge)]).contiguous()
+    valid = torch.cat([torch.arange(n) % 17 != 5, torch.ones(API_EDGE_KEYPOINTS, dtype=torch.bool)])
+    return img, gaussian_blur(img.to(torch.float32), sigma=2.0), kps, valid
+
+
+def phase_api(ck, dev, frame, card: str) -> tuple[dict, str, dict]:
+    """Phase 13: the two-step API and the nms switch, card against CPU, with
+    each call's launch counts on the card; returns (numbers, line, launches
+    over the phase)."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch import ops
+    from vision_slam_frontend_tpu_torch.ops import brief
+
+    img, blurred, kps, valid = api_inputs(frame)
+    planes3 = torch.stack([img.to(torch.float32), blurred, torch.from_numpy(u8(frame.right)).to(torch.float32)], -1)
+    theta = ops.compute_orientations(blurred, kps, valid)  # the CPU's angles feed both describes
+    calls = {
+        "compute_orientations": lambda d: ops.compute_orientations(blurred.to(d), kps.to(d), valid.to(d)),
+        "brief_describe gather": lambda d: ops.brief_describe(blurred.to(d), kps.to(d), theta.to(d), valid.to(d),
+                                                              method="gather"),
+        "brief_describe mxu": lambda d: ops.brief_describe(blurred.to(d), kps.to(d), theta.to(d), valid.to(d),
+                                                           method="mxu"),
+        "brief_describe auto": lambda d: ops.brief_describe(blurred.to(d), kps.to(d), theta.to(d), valid.to(d)),
+        "extract_patches (H, W)": lambda d: brief.extract_patches(blurred.to(d), kps.to(d)),
+        "extract_patches (H, W, 3)": lambda d: brief.extract_patches(planes3.to(d), kps.to(d)),
+        "fast_detect nms=False": lambda d: ops.fast_detect(img.to(d), threshold=12.0, max_keypoints=API_KEYPOINTS,
+                                                           border=19, nms=False),
+        "detect_and_describe nms=False": lambda d: brief.detect_and_describe(img.to(d), threshold=12.0,
+                                                                             max_keypoints=API_KEYPOINTS, nms=False),
+    }
+    t0 = time.perf_counter()
+    total = dict.fromkeys(ck.LAUNCHES, 0)
+    parts, numbers = [], {}
+    for name, call in calls.items():
+        ck.reset_launch_counts()
+        out = call(dev)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        want = {k: API_LAUNCHES[name].get(k, 0) for k in launches}
+        check(launches == want, f"{name}: launches {launches}, expected {want}")
+        ref = call(torch.device("cpu"))
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        float_err = 0.0
+        for a, b in zip(outs, refs):
+            a = a.cpu()
+            if name == "compute_orientations":
+                float_err = max_abs_err(a, b)
+                check(float_err <= API_THETA_ATOL, f"{name}: card against CPU {float_err:.3g} rad")
+                check(torch.equal(brief.quantize_angle(a), brief.quantize_angle(b)), f"{name}: rotation bins differ")
+            elif a.dtype.is_floating_point and name.startswith(("fast_detect", "detect_and_describe")):
+                float_err = max(float_err, max_abs_err(a, b))
+            else:
+                check_equal(f"{name} card against CPU", a, b)
+        numbers[name] = dict(launches=launches, float_max_abs_diff=float_err)
+        parts.append(f"{name}: launches " + (", ".join(f"{k} {v}" for k, v in launches.items() if v) or "none")
+                     + (f", float max abs diff {float_err:.3g}" if float_err or name == "compute_orientations" else ""))
+    seconds = time.perf_counter() - t0
+    line = (f"[{card}] 640x480, K={API_KEYPOINTS} ({int(valid.sum())} valid, {API_EDGE_KEYPOINTS} at 3-14 px from "
+            f"the edges), card against CPU, every int and bool field and word equal, patches exact: "
+            + "; ".join(parts) + f" ({seconds:.1f} s)")
+    return dict(numbers, seconds=seconds), line, total
 
 
 def main() -> int:
@@ -3114,7 +3266,11 @@ def main() -> int:
     per_path.update(tool_paths)
     tools["seconds"] = time.perf_counter() - t12
     tmp_dir.cleanup()
-    say("12 tools", f"phase 12 {tools['seconds']:.1f} s; whole run {time.perf_counter() - t_start:.1f} s")
+    say("12 tools", f"phase 12 {tools['seconds']:.1f} s; whole run so far {time.perf_counter() - t_start:.1f} s")
+
+    api, line, per_path["api"] = phase_api(ck, dev, frames[0], smi)
+    say("13 api", line)
+    say("13 api", f"phase 13 {api['seconds']:.1f} s; whole run {time.perf_counter() - t_start:.1f} s")
 
     launches = {name: sum(p[name] for p in per_path.values()) for name in KERNELS}
     print(json.dumps({"card": smi, "max_sm_mhz": sm_mhz, "ptxas": resources,
@@ -3122,7 +3278,8 @@ def main() -> int:
                                 for k, v in steps.items()}, "shapes": rows, "product_ms": prod_ms,
                       "launch_floor_ms": floor_ms,
                       "launches_per_path": per_path, "ba": ba_numbers, "local_ba": lba_numbers,
-                      "golden_loop": golden, "inputs": inputs, "parallel": parallel, "tools": tools}), flush=True)
+                      "golden_loop": golden, "inputs": inputs, "parallel": parallel, "tools": tools,
+                      "api": api}), flush=True)
     kernels = []
     for name, (source, replaces, _) in KERNELS.items():
         r = next(x for x in rows if x["kernel"] == name and x["shape"] == PRIMARY_SHAPE[name])

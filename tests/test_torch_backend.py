@@ -266,7 +266,14 @@ def test_dense_plateau_coupling_is_the_jax_packages_compensated_product(step_pro
     bf16 hi/mid/lo parts (hh + mm + hm + mh + hl + lh, float32 sums) equals
     the JAX package's _bbt_compensated on the same Bt within float32 sum-order
     rounding (2e-6 of the largest entry); the dense step through that
-    assembly is a finite step of the solver's shape."""
+    assembly is a finite step of the solver's shape.
+
+    With slots drawn with replacement (the BA benchmark's observers,
+    bench_ba.py:56), a landmark can hold two slots on one pose: the JAX
+    package then rounds that pose's summed parts to bf16 as it places them.
+    placed_parts' emulation equals _bbt_compensated within the same 2e-6,
+    and the port's float32 coupling differs from it by more than that on
+    the blocks of the repeated (landmark, pose) pairs."""
     from unittest import mock
 
     from vision_slam_frontend_tpu_torch.backend import dense_plateau
@@ -285,12 +292,67 @@ def test_dense_plateau_coupling_is_the_jax_packages_compensated_product(step_pro
             for l in range(L):
                 ours[:, pose_of[l, a], :, pose_of[l, b]] += C[l]
     close(ours, theirs, 2e-6, "coupling")
+
+    pose_dup = rng.integers(0, P, size=(L, Ml))  # with replacement
+    repeats = [(l, a) for l in range(L) for a in range(Ml) if (pose_dup[l, :a] == pose_dup[l, a]).any()]
+    assert len(repeats) >= 3
+    oh = pose_dup[:, :, None] == np.arange(P)[None, None, :]
+    theirs = np.asarray(jba._bbt_compensated(jnp.asarray(Bt), jnp.asarray(oh)))
+    parts = dense_plateau.placed_parts(Btt, torch.from_numpy(pose_dup), torch.ones((L, Ml), dtype=torch.bool))
+    placed = np.zeros((6, P, 6, P), np.float64)
+    port_f32 = np.zeros((6, P, 6, P), np.float64)
+    for a in range(Ml):
+        for b in range(Ml):
+            C = dense_plateau._six_products([x[:, a] for x in parts], [x[:, b] for x in parts]).double().numpy()
+            F = torch.einsum("lic,ljc->lij", Btt[:, a], Btt[:, b]).double().numpy()  # the port's float32 products
+            for l in range(L):
+                placed[:, pose_dup[l, a], :, pose_dup[l, b]] += C[l]
+                port_f32[:, pose_dup[l, a], :, pose_dup[l, b]] += F[l]
+    close(placed, theirs, 2e-6, "placed coupling")
+    rep = np.zeros((P, P), bool)
+    for l, a in repeats:
+        rep[pose_dup[l, a], pose_dup[l]] = rep[pose_dup[l], pose_dup[l, a]] = True
+    diff = np.abs(port_f32 - theirs).transpose(1, 3, 0, 2)  # (P, P, 6, 6)
+    assert diff[rep].max() > 2e-6 * np.abs(theirs).max()
+
     _, _, _, p, pm_t, lin_t = step_problem
     with mock.patch.object(ba, "_dense_assemble", dense_plateau._dense_assemble_compensated):
         d_pose, d_lm, _ = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
     ref = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
     assert d_pose.shape == ref[0].shape and bool(torch.isfinite(d_pose).all() and torch.isfinite(d_lm).all())
     close(d_pose, ref[0].numpy(), 2e-2, "compensated d_pose")
+
+
+@pytest.fixture(scope="module")
+def small_benchmark_problem():
+    """The BA benchmark's generator (repeated (landmark, pose) slots
+    included) at P=12, L=400, with the trials' camera."""
+    from vision_slam_frontend_tpu_torch.io.synthetic import make_problem
+
+    problem, gt_t, _ = make_problem(12, 400, 5, return_gt=True, clean=True, device=CPU)
+    cam = res.CameraParams(fx=500.0, fy=500.0, cx=320.0, cy=240.0, R_cr=np.eye(3), t_cr=np.zeros(3))
+    return problem, cam, gt_t
+
+
+def test_dense_plateau_placement_trial_keys(small_benchmark_problem):
+    from vision_slam_frontend_tpu_torch.backend import dense_plateau
+
+    out = dense_plateau.placement_trial(*small_benchmark_problem)
+    assert set(out) == {"placed", "reference_cpu", "repeated_slots", "follows_reference"}
+    assert set(out["placed"]) == {"cost", "iterations", "accepted", "rejected", "ate", "cost_after_step1"}
+    assert out["repeated_slots"] > 0 and np.isfinite(out["placed"]["cost"])
+    assert out["reference_cpu"] == dense_plateau.REFERENCE_CPU and isinstance(out["follows_reference"], bool)
+
+
+def test_dense_plateau_schedule_trial_keys(small_benchmark_problem):
+    from vision_slam_frontend_tpu_torch.backend import dense_plateau
+
+    out = dense_plateau.schedule_trial(*small_benchmark_problem)
+    assert set(out) == {"stop", "lambdas", "cost_after_step", "accepted_from"}
+    assert set(out["stop"]) == {"cost", "iterations", "accepted", "rejected", "ate", "cost_after_step1"}
+    assert out["lambdas"] == [10.0**k for k in range(-9, 5)]
+    assert len(out["cost_after_step"]) == len(out["lambdas"])
+    assert out["accepted_from"] is None or out["accepted_from"] in out["lambdas"]
 
 
 def test_scatter_pcg_equals_the_jax_packages():
@@ -361,7 +423,7 @@ def test_solver_checkpoint_resume_and_cross_package_load(tmp_path):
     jckpt = str(tmp_path / "jax.npz")
     jba.optimize(jp, cam=cam, solver=jba.BASolverConfig(max_iterations=3), checkpoint_path=jckpt, checkpoint_every=1)
     jprob, jstate = jba.load_solver_checkpoint(jckpt)
-    prob, state = ba.load_solver_checkpoint(jckpt)
+    prob, state = ba.load_solver_checkpoint(jckpt, device=CPU)
     assert state == jstate
     mine = prob.to_numpy()
     for f in jp.__dataclass_fields__:

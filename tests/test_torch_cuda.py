@@ -1,6 +1,7 @@
 """The port on a CUDA GPU: each kernel against its plain PyTorch version at
 the main paths' shapes, the keyframe step and Frontend on the card against
-the CPU, for every descriptor family and the ORB pyramid, the L2 kNN,
+the CPU, for every descriptor family and the ORB pyramid, the two-step API
+routes and nms=False, the L2 kNN,
 frontend checkpoints and validate mode, and the BA backend (a failed Cholesky, bit-equal reruns, the card against the CPU, the
 CUDA default refused without a card).
 
@@ -202,6 +203,48 @@ def test_window_edge_cases_match_plain_on_the_card(cuda, case):
     assert torch.equal(out, ck.patch_windows_plain(im, y, x, rows, shifted, block)), label
 
 
+API_ROUTES = {  # the two-step API and the nms switch: (call, launches on the card)
+    "compute_orientations": (lambda o, img, blur, kps, valid, theta: o.compute_orientations(blur, kps, valid),
+                             {"extract_patches": 1}),
+    "brief_describe gather": (lambda o, img, blur, kps, valid, theta: o.brief_describe(blur, kps, theta, valid,
+                                                                                      method="gather"), {}),
+    "brief_describe mxu": (lambda o, img, blur, kps, valid, theta: o.brief_describe(blur, kps, theta, valid,
+                                                                                   method="mxu"),
+                           {"extract_patches": 1}),
+    "extract_patches": (lambda o, img, blur, kps, valid, theta: o.brief.extract_patches(torch.stack([blur] * 3, -1),
+                                                                                         kps),
+                        {"extract_patches": 1}),
+    "fast_detect nms=False": (lambda o, img, blur, kps, valid, theta: o.fast_detect(img, 12.0, 512, 19, nms=False),
+                              {"fast_scores_nms": 1}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(API_ROUTES))
+def test_api_routes_on_the_card_equal_the_cpu(cuda, frames, route):
+    """Each route of the reference's two-step API and of nms=False on the
+    card equals the CPU on the same inputs, with its launches."""
+    from vision_slam_frontend_tpu_torch import ops
+
+    call, launches = API_ROUTES[route]
+    img = torch.from_numpy(_u8(frames[0].left))
+    blur = gaussian_blur(img.float(), sigma=2.0)
+    kps, _, valid = ops.fast_detect(img, 12.0, 512, 19)
+    kps = torch.cat([kps, torch.tensor([[3.4, 100.0], [636.2, 50.0], [300.0, 476.6], [-5.0, 700.0]])])
+    valid = torch.cat([valid, torch.ones(4, dtype=torch.bool)])
+    theta = ops.compute_orientations(blur, kps, valid)
+    inputs = (img, blur, kps, valid, theta)
+    want = call(ops, *inputs)
+    ck.reset_launch_counts()
+    got = call(ops, *(t.to(cuda) for t in inputs))
+    assert ck.LAUNCHES == {k: launches.get(k, 0) for k in ck.LAUNCHES}
+    for a, b in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        if route == "compute_orientations" or (route.startswith("fast") and b.is_floating_point()):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6)  # sub-pixel fits and angles
+        else:
+            assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("overrides", [{}, {"descriptor_family": "brisk"}, {"descriptor_family": "freak"},
                                        {"descriptor_family": "akaze"}, {"num_levels": 3},
@@ -380,7 +423,8 @@ def test_failed_cholesky_escalates_lambda(where, request, monkeypatch, tmp_path)
     solver = ba.BASolverConfig(max_iterations=1, schur_solver="dense")
     ckpt = str(tmp_path / "ok.npz")
     _, info = ba.optimize(problem, cam=cam, solver=solver, checkpoint_path=ckpt, checkpoint_every=1)
-    assert info["accepted"] == 1 and ba.load_solver_checkpoint(ckpt)[1]["lambda"] == pytest.approx(1e-3 * 0.4)
+    assert info["accepted"] == 1
+    assert ba.load_solver_checkpoint(ckpt, device=dev)[1]["lambda"] == pytest.approx(1e-3 * 0.4)
 
     solve, calls = ba._dense_solve_core, []
 
@@ -392,7 +436,7 @@ def test_failed_cholesky_escalates_lambda(where, request, monkeypatch, tmp_path)
     ckpt = str(tmp_path / "failed.npz")
     _, info = ba.optimize(problem, cam=cam, solver=solver, checkpoint_path=ckpt, checkpoint_every=1)
     assert calls == [1] and info["accepted"] == 0 and info["history"][1] == info["history"][0]
-    assert ba.load_solver_checkpoint(ckpt)[1]["lambda"] == pytest.approx(1e-3 * 4.0**3)
+    assert ba.load_solver_checkpoint(ckpt, device=dev)[1]["lambda"] == pytest.approx(1e-3 * 4.0**3)
 
 
 @pytest.mark.cuda

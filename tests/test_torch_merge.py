@@ -122,7 +122,7 @@ def test_associate_landmarks_equals_the_jax_packages(sessions):
     want, j_pairs = jmerge.associate_landmarks(ba_j, j_sop, radius=0.25)
     assert pairs == j_pairs and pairs > 20
     assert got["landmarks"].shape[0] % 128 == 0
-    _assert_ba_equal(BAProblem.from_numpy(got), want)
+    _assert_ba_equal(BAProblem.from_numpy(got, device="cpu"), want)
 
 
 @pytest.mark.parametrize("freeze_anchor", [True, False])

@@ -98,9 +98,9 @@ def save_solver_checkpoint(path: str, problem: BAProblem, state: dict) -> None:
     os.replace(tmp, path)
 
 
-def load_solver_checkpoint(path: str, device="cpu") -> tuple[BAProblem, dict]:
-    """Restore (BAProblem on `device`, solver-state dict) saved by either
-    package's save_solver_checkpoint."""
+def load_solver_checkpoint(path: str, device="cuda") -> tuple[BAProblem, dict]:
+    """Restore (BAProblem on `device`, the GPU unless the caller names the
+    CPU; solver-state dict) saved by either package's save_solver_checkpoint."""
     with np.load(path) as raw:
         data = dict(raw)
     arrays = {f.name: data["ba_" + f.name] for f in dataclasses.fields(BAProblem) if "ba_" + f.name in data}
@@ -803,7 +803,7 @@ def optimize(
     if cam is None:
         if config is None:
             raise ValueError("need a FrontendConfig or CameraParams")
-        cam = CameraParams.from_config(config)
+        cam = CameraParams.from_config(config, device=device)
     cam = cam.to(device)
 
     rounds = 1 + (solver.trim_rounds if solver.trim_threshold > 0 else 0)

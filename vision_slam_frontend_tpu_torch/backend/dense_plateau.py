@@ -17,6 +17,16 @@ Four measurements, on the device the caller names:
   ml and ll dropped. Beside it the port's own float32 run and the JAX
   package's CPU figures (REFERENCE_CPU). The solver keeps its float32
   coupling.
+- `placement_trial`: the same assembly with the JAX package's placement
+  rounding too: it places each landmark's slots per pose in bfloat16
+  (backend/ba.py:643-645 there), so where a landmark has two slots on one
+  pose (the benchmark draws observers with replacement) the hi, mid and lo
+  parts are summed per (landmark, pose) in float32 and each sum rounded to
+  bfloat16 before the six products.
+- `schedule_trial`: the port's float32 dense LM run to its stop, then one
+  dense step from that state at each lambda of SCHEDULE_LAMBDAS: the cost
+  after it, beside the stop cost (which lambda the shared LM schedule would
+  need to go on).
 
 Run: python -m vision_slam_frontend_tpu_torch.backend.dense_plateau
 [--device cuda] (one JSON line per measurement; about a minute on an H100).
@@ -55,12 +65,22 @@ RIDGES = {
 # The landmarks' damping floor, as a fraction of each block's trace / 3.
 FLOORS = {"0": 0.0, "1e-6": 1e-6, "1e-5 (the solver's)": 1e-5, "1e-4": 1e-4}
 
+# schedule_trial's lambdas: 1e-9 to 1e4, one per decade.
+SCHEDULE_LAMBDAS = tuple(10.0**k for k in range(-9, 5))
+
 # The JAX package's dense LM at SHAPE on the CPU (its optimize with
 # BASolverConfig(max_iterations=25, schur_solver="dense", cg_iterations=32)
 # on bench_ba.make_problem(500, 100_000, 5, clean=True)): the figures
 # coupling_trial's emulated run is held against.
 REFERENCE_CPU = dict(cost=42_009.371, iterations=25, accepted=17, rejected=[4, 5, 6, 11, 17, 18, 20, 23],
                      ate=0.02509, cost_after_step1=2_080_473.875)
+
+
+# ROADMAP.md C's CPU figures at SHAPE (float32): placement_trial's emulation,
+# and the float32 run's stop with the JAX package's first accepted lambda when
+# started from that state. Printed beside the card's; nothing is held to them.
+PLACEMENT_CPU = dict(cost=42_058.1, iterations=25, accepted=19, rejected=[4, 5, 6, 9, 15, 21], ate=0.0274)
+SCHEDULE_CPU = dict(stop_cost=43_844.9, reference_accepted_at=16.4)
 
 
 def benchmark_problem(device):
@@ -181,8 +201,15 @@ def compensated_coupling(Ba, Bb):
     package's compensated bf16 products: hh + mm + hm + mh + hl + lh, each a
     product of bfloat16 parts accumulated in float32 (exact products, float32
     sums), ml and ll dropped, summed in its order."""
-    ha, ma, la = _split_bf16(Ba)
-    hb, mb, lb = _split_bf16(Bb)
+    return _six_products(_split_bf16(Ba), _split_bf16(Bb))
+
+
+def _six_products(pa, pb):
+    """hh + mm + hm + mh + hl + lh of two (n, 6, 3) blocks' bfloat16 parts
+    (each held in float32), products accumulated in float32, in the JAX
+    package's order; ml and ll are dropped."""
+    ha, ma, la = pa
+    hb, mb, lb = pb
 
     def dot(x, y):
         return torch.einsum("nic,njc->nij", x, y)
@@ -190,37 +217,84 @@ def compensated_coupling(Ba, Bb):
     return dot(ha, hb) + dot(ma, mb) + dot(ha, mb) + dot(ma, hb) + dot(ha, lb) + dot(la, hb)
 
 
-def _dense_assemble_compensated(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan=None,
-                                block_poses=None):
-    """A copy of ba._dense_assemble whose coupling is compensated_coupling."""
-    P = problem.num_poses
-    L = problem.num_landmarks
-    t = ba._schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor=True)
-    lm_tbl, lm_mask = t["lm_tbl"], t["lm_mask"]
-    Mp, Ml = Jp_pm.shape[1], lm_tbl.shape[1]
-    Ginv = ba._inv_lower3(ba._chol3(t["V"]))
-    S4 = ba._s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j, block_poses)
-    W_pm = torch.einsum("pmij,pmik->pmjk", Jp_pm, Jl_pm)
-    W_lm = W_pm.reshape(P * Mp, 18)[lm_tbl].reshape(L, Ml, 6, 3) * lm_mask[..., None]
-    Bt = torch.einsum("lmij,lcj->lmic", W_lm, Ginv)
-    lm, a, bb, target = ba._dense_coupling_plan(problem, block_poses) if plan is None else plan
-    C = compensated_coupling(Bt[lm, a], Bt[lm, bb])
-    ba._scatter_add_(S4.view(P * S4.shape[1], 36), target, -C.reshape(-1, 36))
-    return S4, t["b"], t["free"], t["V_inv"], t["g_lm"]
+def _slot_groups(pose_of, mask):
+    """(same (L, Ml, Ml): valid slots a, b of one landmark on one pose;
+    first (L, Ml): a valid slot with no earlier slot on its pose)."""
+    same = (pose_of[:, :, None] == pose_of[:, None, :]) & mask[:, :, None] & mask[:, None, :]
+    idx = torch.arange(pose_of.shape[1], device=pose_of.device)
+    return same, mask & ~(same & (idx[None, None, :] < idx[None, :, None])).any(-1)
 
 
-def _lm_figures(problem, cam, gt_t, patch: tuple[str, object] | None = None) -> dict:
+def placed_parts(Bt, pose_of, mask):
+    """The JAX package's placement of Bt (L, Ml, 6, 3): per (landmark,
+    pose), the hi, mid and lo parts of that pose's valid slots summed in
+    float32 and each sum rounded to bfloat16. Each sum is held on the first
+    slot of its (landmark, pose) group, the group's other slots are zero, so
+    a pair plan over slots counts every pose pair once. Returns (hi, mid, lo),
+    each (L, Ml, 6, 3) in Bt's dtype."""
+    same, first = _slot_groups(pose_of, mask)
+    out = []
+    for part in _split_bf16(Bt):
+        summed = torch.einsum("lab,lbic->laic", same.to(part.dtype), part)
+        out.append(torch.where(first[..., None, None], summed.to(torch.bfloat16).to(part.dtype), 0.0))
+    return tuple(out)
+
+
+def _dense_assemble_with(coupling):
+    """A copy of ba._dense_assemble whose coupling blocks are
+    `coupling(Bt, problem, lm, a, b)` -> (n, 6, 6) for the plan's slot pairs."""
+
+    def assemble(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan=None, block_poses=None):
+        P = problem.num_poses
+        L = problem.num_landmarks
+        t = ba._schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor=True)
+        lm_tbl, lm_mask = t["lm_tbl"], t["lm_mask"]
+        Mp, Ml = Jp_pm.shape[1], lm_tbl.shape[1]
+        Ginv = ba._inv_lower3(ba._chol3(t["V"]))
+        S4 = ba._s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j, block_poses)
+        W_pm = torch.einsum("pmij,pmik->pmjk", Jp_pm, Jl_pm)
+        W_lm = W_pm.reshape(P * Mp, 18)[lm_tbl].reshape(L, Ml, 6, 3) * lm_mask[..., None]
+        Bt = torch.einsum("lmij,lcj->lmic", W_lm, Ginv)
+        lm, a, bb, target = ba._dense_coupling_plan(problem, block_poses) if plan is None else plan
+        C = coupling(Bt, problem, lm, a, bb)
+        ba._scatter_add_(S4.view(P * S4.shape[1], 36), target, -C.reshape(-1, 36))
+        return S4, t["b"], t["free"], t["V_inv"], t["g_lm"]
+
+    return assemble
+
+
+def _compensated_coupling(Bt, problem, lm, a, bb):
+    return compensated_coupling(Bt[lm, a], Bt[lm, bb])
+
+
+def _placed_coupling(Bt, problem, lm, a, bb):
+    parts = placed_parts(Bt, problem.lm_obs // problem.pose_obs.shape[1], problem.lm_obs_mask)
+    return _six_products([x[lm, a] for x in parts], [x[lm, bb] for x in parts])
+
+
+# ba._dense_assemble with the compensated products alone, and with the
+# placement rounding too.
+_dense_assemble_compensated = _dense_assemble_with(_compensated_coupling)
+_dense_assemble_placed = _dense_assemble_with(_placed_coupling)
+
+
+def _lm_run(problem, cam, gt_t, patch: tuple[str, object] | None = None):
     """Dense LM at the benchmark's settings, with `ba.<patch[0]>` replaced
-    where a patch is given: {cost, iterations, accepted, rejected (the
-    1-based iterations whose step was refused), ate, cost_after_step1 (the
-    cost history's second entry)}."""
+    where a patch is given: (the problem where it stopped, {cost,
+    iterations, accepted, rejected (the 1-based iterations whose step was
+    refused), ate, cost_after_step1 (the cost history's second entry)})."""
     solver = ba.BASolverConfig(max_iterations=ITERATIONS, schur_solver="dense", cg_iterations=CG_ITERATIONS)
     with mock.patch.object(ba, *patch) if patch else contextlib.nullcontext():
         opt, info = ba.optimize(problem, cam=cam, solver=solver)
     h = info["history"]
-    return dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
-                rejected=[i for i in range(1, len(h)) if h[i] == h[i - 1]],
-                ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t), cost_after_step1=h[1])
+    return opt, dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
+                     rejected=[i for i in range(1, len(h)) if h[i] == h[i - 1]],
+                     ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t), cost_after_step1=h[1])
+
+
+def _lm_figures(problem, cam, gt_t, patch: tuple[str, object] | None = None) -> dict:
+    """_lm_run's figures."""
+    return _lm_run(problem, cam, gt_t, patch)[1]
 
 
 def _dense_lm(problem, cam, gt_t, patch: tuple[str, object]) -> dict:
@@ -244,6 +318,13 @@ def floor_trial(problem, cam, gt_t) -> dict:
             for name, floor in FLOORS.items()}
 
 
+def _follows_reference(run: dict) -> bool:
+    """The run rejects iterations 4 to 6, runs all ITERATIONS, and ends
+    within 1% of the reference's cost."""
+    return bool({4, 5, 6} <= set(run["rejected"]) and run["iterations"] == ITERATIONS
+                and abs(run["cost"] - REFERENCE_CPU["cost"]) <= 0.01 * REFERENCE_CPU["cost"])
+
+
 def coupling_trial(problem, cam, gt_t) -> dict:
     """Dense LM in float32 with the JAX package's compensated bf16 coupling
     (`compensated`) beside the port's float32 coupling (`port_float32`) and
@@ -252,10 +333,43 @@ def coupling_trial(problem, cam, gt_t) -> dict:
     ends within 1% of the reference's cost."""
     out = dict(compensated=_lm_figures(problem, cam, gt_t, ("_dense_assemble", _dense_assemble_compensated)),
                port_float32=_lm_figures(problem, cam, gt_t), reference_cpu=REFERENCE_CPU)
-    em = out["compensated"]
-    out["follows_reference"] = bool({4, 5, 6} <= set(em["rejected"]) and em["iterations"] == ITERATIONS
-                                    and abs(em["cost"] - REFERENCE_CPU["cost"]) <= 0.01 * REFERENCE_CPU["cost"])
+    out["follows_reference"] = _follows_reference(out["compensated"])
     return out
+
+
+def placement_trial(problem, cam, gt_t) -> dict:
+    """Dense LM in float32 with the JAX package's placement rounding and
+    compensated products (`placed`) beside its CPU figures
+    (`reference_cpu`); `follows_reference` as coupling_trial's, and
+    `repeated_slots`: how many valid slots share a (landmark, pose) with an
+    earlier slot."""
+    mask = problem.lm_obs_mask
+    _, first = _slot_groups(problem.lm_obs // problem.pose_obs.shape[1], mask)
+    repeated = int((mask & ~first).sum())
+    placed = _lm_figures(problem, cam, gt_t, ("_dense_assemble", _dense_assemble_placed))
+    return dict(placed=placed, reference_cpu=REFERENCE_CPU, repeated_slots=repeated,
+                follows_reference=_follows_reference(placed))
+
+
+def schedule_trial(problem, cam, gt_t) -> dict:
+    """The port's float32 dense LM at the benchmark's settings run to its
+    stop, then one dense step from that state at each lambda of
+    SCHEDULE_LAMBDAS: {stop: _lm_run's figures, lambdas, cost_after_step
+    (one per lambda), accepted_from (the smallest lambda whose step lowers
+    the cost, or None)}."""
+    opt, stop = _lm_run(problem, cam, gt_t)
+    cfg = ba.BASolverConfig()
+    hd, wt, wr = (ba._round_f32(x) for x in (cfg.huber_delta, cfg.odom_t_weight, cfg.odom_r_weight))
+    pm = ba._build_pm_inputs(opt)
+    plan = ba._dense_coupling_plan(opt)
+    lin = ba._linearize_pm(cam, opt, pm, hd, wt, wr, True)
+    costs = []
+    for lam in SCHEDULE_LAMBDAS:
+        d_pose, d_lm, _ = ba._dense_core(pm, *lin, opt, ba._round_f32(lam), cfg.fix_first_pose, plan)
+        costs.append(float(ba.compute_cost(cam, ba._apply_step(opt, d_pose, d_lm), hd, wt, wr, True)))
+    lower = [lam for lam, c in zip(SCHEDULE_LAMBDAS, costs) if np.isfinite(c) and c < stop["cost"]]
+    return dict(stop=stop, lambdas=list(SCHEDULE_LAMBDAS), cost_after_step=costs,
+                accepted_from=lower[0] if lower else None)
 
 
 def main(argv=None) -> int:
@@ -271,6 +385,10 @@ def main(argv=None) -> int:
                       "landmark_floors": floor_trial(problem, cam, gt_t)}), flush=True)
     print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
                       "coupling": coupling_trial(problem, cam, gt_t)}), flush=True)
+    print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
+                      "placement": placement_trial(problem, cam, gt_t)}), flush=True)
+    print(json.dumps({"device": str(device), "ground_truth_cost": GROUND_TRUTH_COST,
+                      "schedule": schedule_trial(problem, cam, gt_t)}), flush=True)
     return 0
 
 

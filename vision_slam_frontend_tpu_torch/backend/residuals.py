@@ -37,6 +37,7 @@ from vision_slam_frontend_tpu_torch.geometry.rotation import (
     quat_rotate,
     quat_to_axis_angle,
 )
+from vision_slam_frontend_tpu_torch.utils.device import resolve_device
 
 
 _EPS = 1e-12
@@ -80,7 +81,10 @@ class CameraParams:
             setattr(self, f.name, _f32(getattr(self, f.name), device))
 
     @classmethod
-    def from_config(cls, config, device="cpu") -> "CameraParams":
+    def from_config(cls, config, device="cuda") -> "CameraParams":
+        """The camera of a FrontendConfig on `device` (the GPU unless the
+        caller names the CPU)."""
+        device = resolve_device(device)
         intr = config.intrinsics_left
         intr_r = config.intrinsics_right
         ext = _f32(config.left_cam_to_robot)

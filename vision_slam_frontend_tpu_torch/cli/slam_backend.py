@@ -177,7 +177,7 @@ def _solve(args, device, group=None) -> int:
         from vision_slam_frontend_tpu_torch.frontend.config import FrontendConfig
 
         config = FrontendConfig.load(args.config)
-        cam = CameraParams.from_config(config)
+        cam = CameraParams.from_config(config, device=device)
         cam_to_robot = np.asarray(config.left_cam_to_robot)
     elif "calib_K_left" in data:
         cam, cam_to_robot = _camera_from_npz(data)

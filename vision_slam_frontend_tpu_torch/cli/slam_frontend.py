@@ -64,6 +64,7 @@ import signal
 import sys
 import threading
 import time
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -71,8 +72,10 @@ from vision_slam_frontend_tpu_torch.backend.local_ba import LocalBAState, window
 from vision_slam_frontend_tpu_torch.utils.device import resolve_device
 from vision_slam_frontend_tpu_torch.utils.profiling import start_trace, write_trace
 
+Event = Tuple[str, float, tuple]  # (kind, timestamp, payload)
 
-def iter_synthetic(spec: str):
+
+def iter_synthetic(spec: str) -> Iterator[Event]:
     """`synthetic[:N[:step]]`: (kind, timestamp, payload) events of the
     JAX package's synthetic stereo world."""
     from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig, generate_sequence
@@ -109,7 +112,7 @@ def _bag_messages(path: str, topics, verbosity: int):
     yield from rosbag.read_messages(path, topics=list(topics))
 
 
-def iter_bag(path: str, left_topic: str, right_topic: str, odom_topic: str, verbosity: int):
+def iter_bag(path: str, left_topic: str, right_topic: str, odom_topic: str, verbosity: int) -> Iterator[Event]:
     """(kind, timestamp, payload) events of a ROS1 bag: odometry as it comes,
     and a stereo pair when a right image carries the stamp of the pending
     left one (the reference pairs by equal stamps; unpaired images are
@@ -136,7 +139,7 @@ def iter_bag(path: str, left_topic: str, right_topic: str, odom_topic: str, verb
             yield ("stereo", t, (left, right))
 
 
-def prefetch_events(events, depth: int = 16):
+def prefetch_events(events: Iterator[Event], depth: int = 16) -> Iterator[Event]:
     """Decode ahead: run the event source (file reads, JPEG or PNG decode) on
     a producer thread feeding a bounded queue, so the host work of frame
     k + 1 overlaps frame k's step. The decoders and file reads release the
@@ -230,7 +233,7 @@ def make_config(args, dataset: str):
     return FrontendConfig(**overrides)
 
 
-def make_events(args, dataset: str):
+def make_events(args, dataset: str) -> Iterator[Event]:
     """The run's (kind, timestamp, payload) events, decoded ahead on a
     producer thread unless --no_prefetch or synthetic."""
     if dataset == "synthetic":

@@ -297,6 +297,7 @@ def detect_and_describe_akaze(
     threshold: float | torch.Tensor = 10.0,
     max_keypoints: int = 512,
     border: int = BORDER,
+    nms: bool = True,
     blur_sigma: float = 2.0,
     num_levels: int = 1,
     scale_factor: float = 1.4,
@@ -305,11 +306,12 @@ def detect_and_describe_akaze(
     describe on a (H, W) uint8 image. `threshold` (FAST intensity units) is
     mapped to the response scale as THRESHOLD_GAIN * threshold^2;
     `num_levels` counts evolution levels and `scale_factor` is their sigma
-    ratio; `blur_sigma` is unused (the diffusion is the smoothing).
+    ratio; `blur_sigma` is unused (the diffusion is the smoothing), and so
+    is `nms` (the Hessian detector always suppresses), as in the reference.
 
     Returns (keypoints (K, 2), scores (K,), descriptors (K, 16) int32,
     valid (K,))."""
-    del blur_sigma
+    del blur_sigma, nms
     border = max(border, BORDER)
     num_levels = max(num_levels, 1)
     resp_thresh = THRESHOLD_GAIN * threshold * threshold

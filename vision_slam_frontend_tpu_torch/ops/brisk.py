@@ -219,16 +219,17 @@ def detect_and_describe_brisk(
     threshold: float | torch.Tensor = 10.0,
     max_keypoints: int = 512,
     border: int = BORDER,
+    nms: bool = True,
     blur_sigma: float = 2.0,
     num_levels: int = 1,
     scale_factor: float = 1.4,
 ):
-    """Registry extractor: FAST detect -> BRISK-class describe on a (H, W)
-    uint8 image. `blur_sigma` is accepted for the registry's signature and
-    unused (the smoothing is per ring).
+    """Registry extractor: FAST detect (`nms` as fast_detect's) ->
+    BRISK-class describe on a (H, W) uint8 image. `blur_sigma` is accepted
+    for the registry's signature and unused (the smoothing is per ring).
 
     Returns (keypoints (K, 2), scores (K,), descriptors (K, 16) int32,
     valid (K,))."""
     del blur_sigma
     return extract_over_levels(lambda img, kps, valid: brisk_describe(img, kps, valid)[0], image, threshold,
-                               max_keypoints, max(border, BORDER), num_levels, scale_factor)
+                               max_keypoints, max(border, BORDER), num_levels, scale_factor, nms)

@@ -2,8 +2,9 @@
 reference's extractor switch.
 
 A family supplies an `extractor(image, threshold, max_keypoints, border,
-blur_sigma, num_levels, scale_factor) -> (keypoints, scores, descriptors,
-valid)`, its `distance` ("hamming": packed int32 words; "l2": float
+nms, blur_sigma, num_levels, scale_factor) -> (keypoints, scores,
+descriptors, valid)` (`nms` False keeps FAST's un-suppressed corners; AKAZE
+ignores it), its `distance` ("hamming": packed int32 words; "l2": float
 vectors) and its width (packed words, or float dimensions for l2). ORB,
 BRISK, AKAZE, SIFT and FREAK are registered, as in the JAX package.
 """

@@ -4,15 +4,16 @@ The score map and the strict 3x3 NMS come from the FAST kernel
 (ops/cuda_kernels.fast_scores_nms); this module masks the borders, applies
 the threshold, takes the exact top-K and fits the sub-pixel offsets (the
 selection tail, `top_k_subpixel`, is shared with the AKAZE detector).
+`fast_detect(nms=False)` selects from the kernel's raw map instead.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vision_slam_frontend_tpu_torch.ops.cuda_kernels import RING_OFFSETS, fast_scores_nms
+from vision_slam_frontend_tpu_torch.ops.cuda_kernels import ARC_LENGTH, RING_OFFSETS, fast_scores_nms
 
-__all__ = ["RING_OFFSETS", "fast_scores", "fast_detect", "interior", "top_k_subpixel"]
+__all__ = ["ARC_LENGTH", "RING_OFFSETS", "fast_scores", "fast_detect", "interior", "top_k_subpixel"]
 
 
 def fast_scores(image: torch.Tensor) -> torch.Tensor:
@@ -35,21 +36,26 @@ def fast_detect(
     threshold: float | torch.Tensor = 10.0,
     max_keypoints: int = 512,
     border: int = 16,
+    nms: bool = True,
 ):
-    """Detect up to `max_keypoints` FAST-9 corners with strict NMS.
+    """Detect up to `max_keypoints` FAST-9 corners.
 
     Args:
       image: (H, W) uint8, or float32 (a resized pyramid level).
       threshold: FAST intensity threshold (a float or a 0-d tensor).
       max_keypoints: top-K capacity.
       border: exclude keypoints within this many pixels of the edge.
+      nms: strict 3x3 non-max suppression (the reference's default). False
+        selects from the raw score map, `fast_scores(image)`; one kernel
+        launch either way.
 
     Returns:
       keypoints (K, 2) float32 (x, y), zeros for padding;
       scores (K,) float32, 0 for padding;
       valid (K,) bool.
     """
-    raw, score = fast_scores_nms(image)
+    raw, suppressed = fast_scores_nms(image)
+    score = suppressed if nms else raw
     # The kernel zero-pads where the ring leaves the image: the 3-pixel
     # border is never a corner, whatever `border` asks.
     in_border = interior(score, max(border, 3))
@@ -59,7 +65,7 @@ def fast_detect(
 
 def top_k_subpixel(score: torch.Tensor, raw: torch.Tensor, max_keypoints: int):
     """The detectors' selection tail: the `max_keypoints` best finite
-    entries of a suppressed, thresholded (H, W) score map, each refined by a
+    entries of a thresholded (H, W) score map (suppressed or raw), each refined by a
     1-D quadratic fit on the raw response along each axis.
 
     Exact top-K with lax.top_k's order: higher score first, lower flat index

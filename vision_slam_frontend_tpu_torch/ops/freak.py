@@ -16,8 +16,10 @@ import numpy as np
 import torch
 
 from vision_slam_frontend_tpu_torch.ops.brief import extract_over_levels
-from vision_slam_frontend_tpu_torch.ops.brisk import (
+from vision_slam_frontend_tpu_torch.ops.brisk import (  # the patch constants are the reference's freak ones too
+    PATCH_AREA,  # noqa: F401
     PATCH_RADIUS,
+    PATCH_SIZE,  # noqa: F401
     RingPattern,
     blurred_patches,
     plane_flat_indices,
@@ -130,16 +132,18 @@ def detect_and_describe_freak(
     threshold: float | torch.Tensor = 10.0,
     max_keypoints: int = 512,
     border: int = BORDER,
+    nms: bool = True,
     blur_sigma: float = 2.0,
     num_levels: int = 1,
     scale_factor: float = 1.4,
 ):
-    """Registry extractor: FAST detect -> FREAK-class describe on a (H, W)
-    uint8 image (the reference's FREAK branch pairs FREAK with FAST).
+    """Registry extractor: FAST detect (`nms` as fast_detect's) ->
+    FREAK-class describe on a (H, W) uint8 image (the reference's FREAK
+    branch pairs FREAK with FAST).
     `blur_sigma` is unused (the smoothing is per field).
 
     Returns (keypoints (K, 2), scores (K,), descriptors (K, 16) int32,
     valid (K,))."""
     del blur_sigma
     return extract_over_levels(lambda img, kps, valid: freak_describe(img, kps, valid)[0], image, threshold,
-                               max_keypoints, max(border, BORDER), num_levels, scale_factor)
+                               max_keypoints, max(border, BORDER), num_levels, scale_factor, nms)

@@ -181,13 +181,14 @@ def detect_and_describe_sift(
     threshold: float | torch.Tensor = 10.0,
     max_keypoints: int = 512,
     border: int = PATCH_RADIUS + 4,
+    nms: bool = True,
     blur_sigma: float = 2.0,
     num_levels: int = 1,
     scale_factor: float = 1.4,
 ):
-    """FAST detect on the float32 image (optionally over a pyramid) ->
-    centroid orientation -> gradient-histogram descriptor; keypoints at
-    level-0 scale.
+    """FAST detect (`nms` as fast_detect's) on the float32 image
+    (optionally over a pyramid) -> centroid orientation ->
+    gradient-histogram descriptor; keypoints at level-0 scale.
 
     Returns (keypoints (K, 2), scores (K,), descriptors (K, 128) float32,
     valid (K,))."""
@@ -196,4 +197,4 @@ def detect_and_describe_sift(
         return orient_and_describe_sift(gaussian_blur(level_img, sigma=blur_sigma), keypoints, valid)[1]
 
     return extract_over_levels(describe, image.to(torch.float32), threshold, max_keypoints, border, num_levels,
-                               scale_factor)
+                               scale_factor, nms)

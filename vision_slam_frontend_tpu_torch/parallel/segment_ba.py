@@ -443,7 +443,7 @@ def optimize_segments(
     if cam is None:
         if config is None:
             raise ValueError("need a FrontendConfig or CameraParams")
-        cam = CameraParams.from_config(config)
+        cam = CameraParams.from_config(config, device=device)
     cam = cam.to(device)
     if n_seg is None:
         n_seg = mesh.size if mesh is not None else 4

@@ -285,7 +285,7 @@ def optimize_sharded_dense(problem: BAProblem, mesh, config=None, solver=None, c
     if cam is None:
         if config is None:
             raise ValueError("need a FrontendConfig or CameraParams")
-        cam = CameraParams.from_config(config)
+        cam = CameraParams.from_config(config, device=device)
     cam = cam.to(device)
 
     d = _lm_shard_inputs(build_lm_sharded(problem, mesh.size), mesh, device)

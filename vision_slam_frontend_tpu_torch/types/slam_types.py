@@ -14,6 +14,15 @@ import numpy as np
 
 
 @dataclasses.dataclass
+class CameraExtrinsics:
+    """Camera-to-robot transform: translation (3,) and rotation (3,) in
+    scaled axis-angle form (the reference's slam_types.h:50-58)."""
+
+    translation: np.ndarray  # (3,)
+    rotation: np.ndarray  # (3,) scaled axis-angle
+
+
+@dataclasses.dataclass
 class VisionFeature:
     """One observed feature in a node; `pixel_right` is the matched
     right-camera pixel of the stereo pair (None when unavailable)."""
@@ -190,15 +199,18 @@ class BAProblem:
         })
 
     @classmethod
-    def from_numpy(cls, arrays, device="cpu") -> "BAProblem":
-        """Tensors on `device` from numpy arrays (a BAProblem of arrays, such
-        as the JAX package's, or a dict of them): index fields as int64,
-        masks as bool, the rest as float32. A CUDA upload goes through pinned
-        memory and does not wait for the stream (a pageable one synchronizes
-        it)."""
+    def from_numpy(cls, arrays, device="cuda") -> "BAProblem":
+        """Tensors on `device` (the GPU unless the caller names the CPU) from
+        numpy arrays (a BAProblem of arrays, such as the JAX package's, or a
+        dict of them): index fields as int64, masks as bool, the rest as
+        float32. A CUDA upload goes through pinned memory and does not wait
+        for the stream (a pageable one synchronizes it)."""
         import torch
 
-        to_cuda = torch.device(device).type == "cuda"
+        from vision_slam_frontend_tpu_torch.utils.device import resolve_device
+
+        device = resolve_device(device)
+        to_cuda = device.type == "cuda"
 
         if not isinstance(arrays, dict):
             arrays = {f.name: getattr(arrays, f.name) for f in dataclasses.fields(arrays)}
