@@ -56,15 +56,26 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               must have none); (b) the benchmark shape (P=500, L=100k,
               N=500k, clean) with tests/test_ba_scale_accuracy.py's settings,
               dense then pcg_chunked (the single-program PCG) at 32 CG
-              iterations, held to that test's ATE checks, with LM it/s, the
+              iterations, held to that test's ATE checks, dense also to the
+              JAX package's CPU run (all 25 iterations, iterations 4 to 6
+              rejected, cost within 1%; backend/dense_plateau's rule), with
+              LM it/s, the
               median iteration split into linearize / solve / cost, enqueue
               against synced time, launches per iteration (torch.profiler),
               peak memory, and one linearize + solve per solver under
-              sync-debug "error"; (c) the first two dense iterations twice,
-              bit-equal; (d) one iteration at L=500k, N=2.5M under dense and
-              PCG: time and peak memory; (e) the slam_backend CLI on phase
+              sync-debug "error", and the dense assembly's time and its
+              stages (terms, placement, gathers, products, scatter; the staged
+              S bit-equal to the assembly's) beside the former float32
+              coupling's recorded time; (c) the first two dense iterations
+              twice, bit-equal; (d) one iteration at L=500k, N=2.5M under
+              dense and PCG: time and peak memory, the assembly as in (b); (e) the slam_backend CLI on phase
               5's synthetic:20 npz on the card and on the CPU: the same keys,
-              shapes and dtypes, poses and landmarks within (a)'s tolerances;
+              shapes and dtypes, the cost histories entry by entry within
+              2e-3 and of equal length, or one longer by one
+              where the runs part at the LM stop rule (one run stops on a
+              relative decrease below 1e-6, the other's decrease there below
+              10 times that and nothing gained after), poses and
+              landmarks within (a)'s tolerances;
               (f) the first dense LM step at the benchmark shape (lambda
               1e-3) in float32 and with every tensor in float64, on the card:
               the relative difference of the step and of the cost after it
@@ -158,12 +169,14 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               and the plain step's int and bool fields, a NaN pose naming an
               aten op, an out-of-range gather raising no device assert (a
               plain step after it still matches), checked against plain
-              seconds; (e) backend/dense_plateau.coupling_trial (ROADMAP C)
-              beside phase 7's dense run, then placement_trial (the
-              reference's bf16 placement of repeated (landmark, pose) slots)
-              and schedule_trial (one dense step at each lambda from 1e-9 to
-              1e4 at the float32 run's stop), each beside ROADMAP C's CPU
-              figures (a record: nothing new is held)
+              seconds; (e) backend/dense_plateau.coupling_trial (ROADMAP C:
+              the coupling's ablations, the compensated products without the
+              placement and the former float32 coupling) beside phase 7's
+              dense run, then placement_trial (the solver, whose coupling
+              places repeated (landmark, pose) slots in bf16 as the reference
+              does) and schedule_trial (one dense step of the former float32
+              coupling at each lambda from 1e-9 to 1e4 at its stop), each
+              beside ROADMAP C's CPU figures (a record: nothing new is held)
  13. api      the reference's two-step API and switches at full width
               (640x480, K=512, ORB, one synthetic frame; 448 FAST or random
               keypoints, every 17th invalid, and 64 keypoints 3-14 px from
@@ -224,6 +237,22 @@ BA_POSE_ATOL = 1e-2
 BA_LM_ATOL = 0.1
 BA_FLIP_COST_RTOL = 5e-3
 BA_REPS = 5
+# A round of ba.optimize stops after an accepted step whose relative decrease
+# is below LM_STOP_REL, or at its iteration limit. Phase 7 (e) holds the
+# card's and the CPU's cost histories to equal lengths, or to one more entry
+# on one side where the two runs part at that rule: one run stops on it, the
+# other's decrease there below LM_STOP_FACTOR times it (float32 rounding at
+# the convergence tail) and nothing gained after.
+LM_STOP_REL = 1e-6
+LM_STOP_FACTOR = 10.0
+# Over the two histories' common length, the entries' relative difference
+# (tests/test_torch_backend_cli.py's HISTORY_RTOL: the port's CPU run against
+# the JAX package's parts by up to 5.7e-4 mid-descent and meets it again).
+BA_HISTORY_RTOL = 2e-3
+# The dense Schur assembly's synced ms with the former float32 coupling (one
+# product per pair of observation slots) on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (PERF.md section 5): (b) and (d) print them beside this run's.
+BA_ASSEMBLY_MS_FLOAT32 = {"scale": 9.22, "big": 85.25}
 # The JAX package's first dense step at the benchmark shape, on the CPU: the
 # cost after it is 3.2% off the float64 step's (ROADMAP C; no jax on the card's
 # machine, so a CPU figure).
@@ -275,7 +304,11 @@ MERGE_SESSION_B = "synthetic:12:0.3"
 # four rejections where the single-device run reached 866); their
 # single-device costs are printed beside. Segments run without the PCG
 # polish there (the PCG mode runs that solve): level A's dense steps and level
-# B. The world-size-1 NCCL group: equal to a one-shard in-process group.
+# B. The world-size-1 NCCL group: equal to a one-shard in-process group. The
+# dense mode is printed beside the JAX package's landmark-sharded dense solve
+# of the same problem on a 2-device CPU mesh (DIST_DENSE_REFERENCE,
+# `python torch_segment_cases.py sharded 64 4096 jax`; no jax on the card's
+# machine).
 SEG_WORLD = dict(P=128, L=2048, obs_per_lm=5, seed=3, stereo=True, pose_noise=0.08)
 SEG_ITERATIONS = 12
 SEG_COST_RTOL = 1e-2
@@ -291,6 +324,7 @@ DIST_GROUPS = (("gloo", DIST_RANKS), ("nccl", 1))
 DIST_SEGMENTS = 4
 DIST_PCG_RTOL = 3e-4
 DIST_SEG_RTOL = 1e-2  # dense too
+DIST_DENSE_REFERENCE = dict(cost=866.2767)
 DIST_TIMEOUT_S = 600
 
 # The H100's published peaks (NVIDIA data sheet, SXM, dense, 700 W).
@@ -1229,9 +1263,59 @@ def ba_iteration_times(name, cam, problem, reps: int):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     med = [statistics.median(p[i] for p in phases) for i in range(4)]
-    return dict(linearize_ms=med[0], build_ms=med[1], solve_ms=med[2], cost_ms=med[3],
-                iteration_ms=statistics.median(whole), enqueue_ms=statistics.median(enqueue),
-                launches=launches or None, device_ms=device_ms)
+    out = dict(linearize_ms=med[0], build_ms=med[1], solve_ms=med[2], cost_ms=med[3],
+               iteration_ms=statistics.median(whole), enqueue_ms=statistics.median(enqueue),
+               launches=launches or None, device_ms=device_ms)
+    if name == "dense":
+        out.update(split=assembly_split(problem, pm, plan, lin(), reps), coupling_blocks=len(plan[0]))
+    return out
+
+
+ASSEMBLY_STAGES = ("terms", "placement", "gathers", "products", "scatter")
+
+
+def assembly_split(problem, pm, plan, lin, reps: int) -> dict:
+    """The dense Schur assembly (ba._dense_assemble at lambda 1e-3) stage by
+    stage on the same linearization, each stage synced: `terms`
+    (ba._dense_terms: the Schur terms, S's block diagonal and odometry
+    blocks, Bt), `placement` (ba.placed_parts and the slabs), `gathers` (each
+    group pair's two slabs), `products` (the one batched product), `scatter`
+    (into S). Median ms of each over `reps` after a warm-up; the staged S
+    must equal _dense_assemble's bit for bit."""
+    import torch
+
+    from vision_slam_frontend_tpu_torch.backend import ba
+
+    lm, a, b, target, place = plan
+    stages = {
+        "terms": lambda _: ba._dense_terms(pm, *lin, problem, 1e-3, True)[1:],
+        "placement": lambda s: (s[0], ba._compensated_slabs(ba.placed_parts(s[1], place))),
+        "gathers": lambda s: (s[0], s[1][0][lm, a], s[1][1][lm, b]),
+        "products": lambda s: (s[0], torch.bmm(s[1], s[2].transpose(1, 2))),
+        "scatter": lambda s: ba._scatter_add_(s[0].view(-1, 36), target, -s[1].reshape(-1, 36)),
+    }
+    times = {k: [] for k in ASSEMBLY_STAGES}
+    for rep in range(reps + 1):
+        state = None
+        for k in ASSEMBLY_STAGES:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = stages[k](state)
+            torch.cuda.synchronize()
+            if rep:
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    whole = ba_build("dense", problem, pm, plan, lin)[0]
+    check_equal("staged dense assembly", state.view_as(whole), whole)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def assembly_text(t, shape: str) -> str:
+    """(b) and (d)'s dense assembly line: its time and stages beside the
+    former float32 coupling's recorded time."""
+    split = ", ".join(f"{k} {t['split'][k]:.2f}" for k in ASSEMBLY_STAGES)
+    return (f"dense assembly {t['build_ms']:.2f} ms for {t['coupling_blocks']} (landmark, pose) group pairs "
+            f"(stages, each synced: {split} ms); the former float32 coupling's {BA_ASSEMBLY_MS_FLOAT32[shape]:.2f} ms "
+            f"recorded")
 
 
 def ba_timing_text(t) -> str:
@@ -1249,6 +1333,7 @@ def phase_ba_scale(dev):
     the timings; then the first two dense iterations twice, bit-equal."""
     import torch
 
+    from vision_slam_frontend_tpu_torch.backend import dense_plateau
     from vision_slam_frontend_tpu_torch.backend.ba import BASolverConfig, optimize
     from vision_slam_frontend_tpu_torch.backend.metrics import ate_rmse
     from vision_slam_frontend_tpu_torch.backend.residuals import CameraParams
@@ -1278,12 +1363,27 @@ def phase_ba_scale(dev):
         check(ate < BA_ATE_MAX[name], f"{name}: ATE {ate:.4f} >= {BA_ATE_MAX[name]}")
         check(ate < init_ate / 2.5, f"{name}: ATE {ate:.4f} not below the initial {init_ate:.4f} / 2.5")
         check(info["accepted"] >= BA_MIN_ACCEPTED, f"{name}: {info['accepted']} accepted steps")
+        h = info["history"]
+        rejected = [i for i in range(1, len(h)) if h[i] == h[i - 1]]
+        follows = ""
+        if name == "dense":
+            run = dict(cost=info["cost"], iterations=info["iterations"], rejected=rejected)
+            ref = dense_plateau.REFERENCE_CPU
+            follows = (f"; rejected {rejected}, the JAX package's CPU run: cost {ref['cost']:.1f}, {ref['accepted']} "
+                       f"of {ref['iterations']} accepted, rejected {ref['rejected']}, ATE {ref['ate']:.4f}")
+            check(dense_plateau._follows_reference(run),
+                  f"dense LM does not follow the JAX package's CPU run (all {dense_plateau.ITERATIONS} iterations, "
+                  f"4 to 6 rejected, cost within 1% of {ref['cost']:.1f}): cost {info['cost']:.1f} after "
+                  f"{info['iterations']} iterations{follows}")
+            follows += " (followed: all iterations, 4 to 6 rejected, cost within 1%)"
         times = ba_iteration_times(name, cam, problem, BA_REPS)
         out[name] = dict(ate=ate, cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
-                         seconds=elapsed, lm_it_per_s=info["iterations"] / elapsed, peak_gib=peak, **times)
+                         rejected=rejected, seconds=elapsed, lm_it_per_s=info["iterations"] / elapsed, peak_gib=peak,
+                         **times)
         lines.append(f"{name} ({schur}, cg {BA_CG_ITERATIONS}): ATE {ate:.4f} m (limit {BA_ATE_MAX[name]}), cost "
-                     f"{info['cost']:.1f}, {info['accepted']} of {info['iterations']} steps accepted in {elapsed:.2f} s = "
-                     f"{info['iterations'] / elapsed:.2f} LM it/s, peak {peak:.2f} GiB; " + ba_timing_text(times))
+                     f"{info['cost']:.1f}, {info['accepted']} of {info['iterations']} steps accepted{follows}, in "
+                     f"{elapsed:.2f} s = {info['iterations'] / elapsed:.2f} LM it/s, peak {peak:.2f} GiB; "
+                     + ba_timing_text(times) + ("; " + assembly_text(times, "scale") if name == "dense" else ""))
     gap = abs(out["dense"]["ate"] - out["pcg"]["ate"])
     check(gap < BA_ATE_GAP, f"dense and PCG ATEs differ by {gap:.4f}")
     lines.append(f"ATE gap {gap:.4f} m (limit {BA_ATE_GAP})")
@@ -1324,8 +1424,35 @@ def phase_ba_big(dev):
         times = ba_iteration_times(name, cam, problem, 1)
         out[name] = dict(seconds=elapsed, peak_gib=peak, cost=info["cost"], accepted=info["accepted"], **times)
         lines.append(f"{name}: one LM iteration in optimize {elapsed:.2f} s (set-up included), peak {peak:.2f} GiB, "
-                     f"accepted {info['accepted']}; " + ba_timing_text(times))
+                     f"accepted {info['accepted']}; " + ba_timing_text(times)
+                     + ("; " + assembly_text(times, "big") if name == "dense" else ""))
     return out, lines
+
+
+def lm_histories_parting(a, b, rtol: float) -> str:
+    """Two LM cost histories of one problem (card and CPU): entry by entry
+    within `rtol` over their common length, and of equal length, or one
+    longer by one only where the two runs part at the stop rule: the shorter
+    run's last relative decrease in (0, LM_STOP_REL), so it stopped on the
+    rule; the longer run's decrease at that iteration below LM_STOP_FACTOR *
+    LM_STOP_REL (zero where its step was refused); and its one more entry,
+    its round's last, a decrease below LM_STOP_REL. Returns how they part."""
+    n = min(len(a), len(b))
+    rel = float((np.abs(a[:n] - b[:n]) / np.abs(b[:n])).max())
+    check(rel <= rtol, f"cost histories: entries differ by {rel:.2e} (limit {rtol})")
+    if len(a) == len(b):
+        return f"{n} entries each, within {rel:.2e}"
+    short, longer = (a, b) if len(a) < len(b) else (b, a)
+
+    def dec(h, i):
+        return float((h[i - 1] - h[i]) / h[i - 1])
+
+    parts = (dec(short, n - 1), dec(longer, n - 1), dec(longer, n) if len(longer) == n + 1 else float("nan"))
+    text = (f"{len(a)} and {len(b)} entries, the first {n} within {rel:.2e}; relative decreases at the parting "
+            f"{parts[0]:.2e} (stopped) and {parts[1]:.2e}, then {parts[2]:.2e}")
+    check(len(longer) == n + 1 and 0 < parts[0] < LM_STOP_REL and 0 <= parts[1] < LM_STOP_FACTOR * LM_STOP_REL
+          and 0 <= parts[2] < LM_STOP_REL, f"cost histories do not part at the LM stop rule: {text}")
+    return text + " (the stop rule)"
 
 
 def phase_ba_cli(npz: str, dev, tmp) -> str:
@@ -1347,7 +1474,9 @@ def phase_ba_cli(npz: str, dev, tmp) -> str:
     a, b = np.load(outs["card"]), np.load(outs["cpu"])
     check(sorted(a.files) == sorted(b.files), "slam_backend npz keys differ between the card and the CPU")
     for k in b.files:
-        check(a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, f"slam_backend npz {k}: shape/dtype differ")
+        check(a[k].dtype == b[k].dtype and (a[k].shape == b[k].shape or k == "ba_cost_history"),
+              f"slam_backend npz {k}: shape/dtype differ")
+    parting = lm_histories_parting(a["ba_cost_history"], b["ba_cost_history"], BA_HISTORY_RTOL)
     pose = float(max(np.abs(a["nodes_loc"] - b["nodes_loc"]).max(), np.abs(a["nodes_quat"] - b["nodes_quat"]).max()))
     lm = float(np.abs(a["ba_landmarks"] - b["ba_landmarks"]).max())
     cost_a, cost_b = float(a["ba_cost_history"][-1]), float(b["ba_cost_history"][-1])
@@ -1356,7 +1485,8 @@ def phase_ba_cli(npz: str, dev, tmp) -> str:
     check(pose <= BA_POSE_ATOL and lm <= BA_LM_ATOL and rel <= BA_COST_RTOL,
           f"slam_backend card vs CPU: poses {pose:.2e}, landmarks {lm:.2e}, cost rel {rel:.2e}")
     return (f"slam_backend on {MAIN_INPUT}'s problem: " + "; ".join(summary) + f" | card vs CPU: {len(a.files)} keys "
-            f"with equal shapes and dtypes, poses max diff {pose:.2e}, landmarks {lm:.2e}, final cost rel {rel:.2e}")
+            f"with equal shapes (the cost history aside) and dtypes; cost histories: {parting}; poses max diff "
+            f"{pose:.2e}, landmarks {lm:.2e}, final cost rel {rel:.2e}")
 
 
 def phase_ba_first_step(dev) -> tuple[str, dict]:
@@ -2599,6 +2729,7 @@ def phase_distributed(dev, npz: str, tmp: str) -> tuple[dict, list[str]]:
             check(pose1 <= BA_POSE_ATOL and lm1 <= BA_LM_ATOL and rel1 <= BA_COST_RTOL,
                   f"gloo {text}: beyond poses {BA_POSE_ATOL}, landmarks {BA_LM_ATOL}, cost {BA_COST_RTOL} of the "
                   "unsharded dense solve")
+            text += f"; the JAX package's landmark-sharded dense on 2 CPU devices: cost {DIST_DENSE_REFERENCE['cost']:.6g}"
             numbers["gloo_dense"].update(single_rel=rel1, single_pose=pose1, single_lm=lm1)
         lines.append(text)
         for field in ("poses_t", "poses_q", "landmarks"):
@@ -2990,7 +3121,8 @@ def phase_tools_checks(frames, dev, card: str) -> tuple[dict, str]:
 
 
 def phase_tools_coupling(dev, card: str, phase7: dict) -> tuple[dict, str]:
-    """(e): backend/dense_plateau.coupling_trial on the card, beside phase 7's dense run."""
+    """(e): backend/dense_plateau.coupling_trial (the coupling's two
+    ablations) on the card, beside phase 7's dense run."""
     import torch
 
     from vision_slam_frontend_tpu_torch.backend import dense_plateau
@@ -3009,16 +3141,19 @@ def phase_tools_coupling(dev, card: str, phase7: dict) -> tuple[dict, str]:
 
     d = phase7["dense"]
     line = (f"(e) [{card}] coupling trial, dense LM at P={dense_plateau.SHAPE[0]} L={dense_plateau.SHAPE[1]} "
-            f"({seconds:.1f} s): compensated bf16 coupling {text(trial['compensated'])} | the port's float32 "
-            f"{text(trial['port_float32'])} | phase 7's dense run: cost {d['cost']:.1f}, {d['accepted']} of "
-            f"{d['iterations']} accepted, ATE {d['ate']:.4f} | the JAX package's CPU run: "
-            f"{text(trial['reference_cpu'])} | follows the reference: {trial['follows_reference']}")
+            f"({seconds:.1f} s), ablations over slot pairs: the compensated bf16 products without the placement "
+            f"rounding {text(trial['compensated'])} (follows the reference: {trial['follows_reference']}) | the "
+            f"former float32 coupling {text(trial['port_float32'])} | phase 7's dense run (the solver: placement "
+            f"per (landmark, pose) and the compensated products): cost {d['cost']:.1f}, {d['accepted']} of "
+            f"{d['iterations']} accepted, rejected {d['rejected']}, ATE {d['ate']:.4f} | the JAX package's CPU run: "
+            f"{text(trial['reference_cpu'])}")
     return dict(trial, seconds=seconds), line
 
 
 def phase_tools_plateau(dev, card: str) -> tuple[dict, str]:
-    """(e), continued: backend/dense_plateau.placement_trial and
-    schedule_trial on the card, beside ROADMAP C's CPU figures."""
+    """(e), continued: backend/dense_plateau.placement_trial (the solver as
+    it is) and schedule_trial (the former float32 coupling's stop) on the
+    card, beside ROADMAP C's CPU figures."""
     import torch
 
     from vision_slam_frontend_tpu_torch.backend import dense_plateau
@@ -3034,11 +3169,12 @@ def phase_tools_plateau(dev, card: str) -> tuple[dict, str]:
     r, cpu = placement["placed"], dense_plateau.PLACEMENT_CPU
     st, scpu = schedule["stop"], dense_plateau.SCHEDULE_CPU
     sweep = ", ".join(f"{lam:.0e}: {c:.3f}" for lam, c in zip(schedule["lambdas"], schedule["cost_after_step"]))
-    line = (f"(e) [{card}] placement trial ({placement['repeated_slots']} repeated (landmark, pose) slots): cost "
+    line = (f"(e) [{card}] placement trial, the solver ({placement['repeated_slots']} repeated (landmark, pose) "
+            f"slots): cost "
             f"{r['cost']:.1f}, {r['accepted']} of {r['iterations']} accepted, rejected {r['rejected']}, ATE "
             f"{r['ate']:.4f}, follows the reference: {placement['follows_reference']} | ROADMAP C's CPU run: cost "
             f"{cpu['cost']:.1f}, {cpu['accepted']} of {cpu['iterations']} accepted, rejected {cpu['rejected']}, ATE "
-            f"{cpu['ate']:.4f} | schedule trial: the float32 run stops at {st['cost']:.1f} after "
+            f"{cpu['ate']:.4f} | schedule trial: the former float32 run stops at {st['cost']:.1f} after "
             f"{st['iterations']} iterations (rejected {st['rejected']}); one step from there, cost by lambda: "
             f"{sweep}; lowest lambda that lowers the cost: {schedule['accepted_from']} | ROADMAP C's CPU run: stops "
             f"at {scpu['stop_cost']:.1f}, the reference from that state accepted first at lambda "

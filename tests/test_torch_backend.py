@@ -4,10 +4,10 @@ The same numpy inputs go through `vision_slam_frontend_tpu.backend` and
 `vision_slam_frontend_tpu_torch.backend`; BAProblem.from_numpy / to_numpy
 carry the problems across. Integer outputs (gather tables, track ids, masks)
 are compared exactly, floats to the tolerance stated at each comparison.
-The port computes in float32 as the JAX package does; its Jacobians are
-closed forms of the derivatives JAX takes with jax.jacfwd, and its dense
-coupling term is float32 where the JAX package's is a compensated bf16
-split, so steps differ by what the tests below measure.
+The port computes in float32 as the JAX package does, and its dense coupling
+term is the JAX package's compensated bf16 arithmetic; its Jacobians are
+closed forms of the derivatives JAX takes with jax.jacfwd, and its float32
+sums run in another order, so steps differ by what the tests below measure.
 """
 
 import json
@@ -199,15 +199,17 @@ def test_compute_cost_equals_the_jax_packages(stereo, huber):
 # (solver, lambda) -> the largest |port - JAX| allowed, relative to the largest
 # entry of d_pose and of d_lm, and the allowed relative difference of the
 # residual norm; each about 3 to 5 times what was measured on this problem.
-# Dense (the JAX package's coupling is a compensated bf16 split, the port's
-# float32), measured: 5.9e-3 / 2.0e-3 / 4.3e-6 at lambda 1e-3, 1.4e-4 /
-# 1.3e-4 / 2.3e-4 at 1. PCG (24 CG iterations amplify float32 rounding; its
-# residual norm at the end is rounding noise), measured: 6.1e-4 / 5.4e-4 /
-# 4.7e-2 at 0.1, 4.0e-5 / 2.1e-5 / 1.7e-2 at 10. (At lambda 1e-3 this mono
-# problem's CG differs by 23% between the two: not compared.)
+# Dense (the same coupling arithmetic; this problem has one slot per
+# (landmark, pose), so what differs is the float32 rounding of W, V and its
+# factor, which V's conditioning amplifies at small damping), measured:
+# 5.9e-3 / 2.0e-3 / 3.7e-5 at lambda 1e-3, 1.4e-4 / 1.3e-4 / 2.6e-4 at 1.
+# PCG (24 CG iterations amplify float32 rounding; its residual norm at the
+# end is rounding noise), measured: 6.1e-4 / 5.4e-4 / 4.7e-2 at 0.1, 4.0e-5 /
+# 2.1e-5 / 1.7e-2 at 10. (At lambda 1e-3 this mono problem's CG differs by
+# 23% between the two: not compared.)
 STEP_TOL = {
-    ("dense", 1e-3): (2e-2, 1e-2, 1e-4),
-    ("dense", 1.0): (1e-3, 1e-3, 1e-3),
+    ("dense", 1e-3): (2e-2, 8e-3, 1e-4),
+    ("dense", 1.0): (5e-4, 5e-4, 1e-3),
     ("pcg", 0.1): (3e-3, 3e-3, 0.15),
     ("pcg", 10.0): (2e-4, 1e-4, 0.1),
 }
@@ -242,19 +244,140 @@ def test_schur_step_equals_the_jax_packages(step_problem, solver, lam):
     assert float(np.abs(np.asarray(theirs[0])[0]).max()) == float(ours[0][0].abs().max()) == 0.0  # the gauge
 
 
+# The dense step on the BA benchmark's generator (bench_ba.make_problem(12,
+# 400, 5, clean=True): observers drawn with replacement, so 238 of its valid
+# slots repeat a (landmark, pose)), lambda -> the largest |port - JAX| allowed
+# relative to the largest entry of d_pose and of d_lm, and the allowed
+# relative difference of the residual norm. Measured: 8.7e-5 / 5.2e-5 / 4.9e-4
+# at lambda 10, 8.6e-6 / 3.6e-6 / 3.0e-4 at 100. A float32 coupling (one
+# product per pair of slots, no placement rounding) is 2.1e-3 / 1.8e-3 /
+# 1.2e-2 and 2.3e-3 / 4.3e-4 / 1.1e-2 off. At lambda 10 the step is held to
+# 3e-4 and not to 1e-4: there each package's own float32 Schur terms differ
+# (the right-hand side b = g_pose - W V^{-1} g_lm by 1.4e-5 of its largest
+# entry, 2.7e-6 at lambda 100), and S's conditioning amplifies that. With the
+# JAX package's Bt, b, V^{-1} and g_lm in place of the port's, the port's
+# assembly and solve give that package's step within 6.3e-6 / 8.4e-6 at
+# lambda 10 (test_dense_step_from_the_jax_packages_terms_equals_its_step);
+# with its Bt alone, still 8.7e-5.
+BENCH_STEP_TOL = {10.0: (3e-4, 2e-4, 3e-3), 100.0: (3e-5, 1.5e-5, 1e-3)}
+
+
+@pytest.fixture(scope="module")
+def benchmark_step_problem():
+    """bench_ba.make_problem(12, 400, 5, clean=True) and its camera,
+    linearized by the JAX package; both solvers get that linearization."""
+    from bench_ba import make_problem as jax_make_problem
+
+    jp, _, _ = jax_make_problem(12, 400, 5, return_gt=True, clean=True)
+    cam = jres.CameraParams(fx=jnp.float32(500.0), fy=jnp.float32(500.0), cx=jnp.float32(320.0),
+                            cy=jnp.float32(240.0), R_cr=jnp.eye(3), t_cr=jnp.zeros(3))
+    pm = jba._build_pm_inputs(jp)
+    lin = jba._linearize_pm(cam, jp, pm, *jax_w(), True)
+    p = port_problem(jp)
+    return jp, pm, lin, p, ba._build_pm_inputs(p), tuple(torch.from_numpy(np.array(x)) for x in lin)
+
+
+@pytest.mark.parametrize("lam", sorted(BENCH_STEP_TOL))
+def test_dense_step_on_the_benchmark_generator_equals_the_jax_packages(benchmark_step_problem, lam):
+    """One dense step with repeated (landmark, pose) slots, against
+    _solve_schur_dense_pm, to BENCH_STEP_TOL."""
+    jp, pm_j, lin_j, p, pm_t, lin_t = benchmark_step_problem
+    _, first = ba._slot_groups(p.lm_obs // p.pose_obs.shape[1], p.lm_obs_mask)
+    assert int((p.lm_obs_mask & ~first).sum()) == 238
+    theirs = jba._solve_schur_dense_pm(pm_j, *lin_j, jp, jnp.float32(lam), fix_first=True,
+                                       plan=jba._dense_coupling_plan(jp))
+    ours = ba._dense_core(pm_t, *lin_t, p, lam, True)
+    tol_pose, tol_lm, tol_res = BENCH_STEP_TOL[lam]
+    close(ours[0], theirs[0], tol_pose, "d_pose")
+    close(ours[1], theirs[1], tol_lm, "d_lm")
+    assert float(ours[2]) == pytest.approx(float(theirs[2]), rel=tol_res)
+
+
+# test_dense_step_from_the_jax_packages_terms_equals_its_step: lambda -> the
+# tolerances of BENCH_STEP_TOL's form. Measured: 6.3e-6 / 8.4e-6 / 4.4e-4 at
+# lambda 10, 7.1e-6 / 2.3e-6 / 1.1e-4 at 100.
+JAX_TERMS_STEP_TOL = {10.0: (3e-5, 4e-5, 2e-3), 100.0: (3e-5, 1e-5, 5e-4)}
+
+
+@pytest.mark.parametrize("lam", sorted(JAX_TERMS_STEP_TOL))
+def test_dense_step_from_the_jax_packages_terms_equals_its_step(benchmark_step_problem, lam):
+    """The port's dense assembly (plan, placement, products, scatter) and
+    solve, with the JAX package's own Schur terms (_dense_prep's Bt, b,
+    V^{-1} and g_lm) in place of the port's float32 ones, against
+    _solve_schur_dense_pm, to JAX_TERMS_STEP_TOL: what is left of the
+    benchmark step's difference at lambda 10 (BENCH_STEP_TOL) once both
+    packages start from the same terms."""
+    from unittest import mock
+
+    jp, pm_j, lin_j, p, pm_t, lin_t = benchmark_step_problem
+    theirs = jba._solve_schur_dense_pm(pm_j, *lin_j, jp, jnp.float32(lam), fix_first=True,
+                                       plan=jba._dense_coupling_plan(jp))
+    prep = jba._dense_prep(pm_j, *lin_j, jp, jnp.float32(lam), True)
+    J = {k: torch.from_numpy(np.array(prep[k])) for k in ("Bt", "b", "V_inv", "g_lm")}
+    coupling, schur_terms = ba._coupling_blocks, ba._schur_terms
+
+    def terms(*args, **kw):
+        return dict(schur_terms(*args, **kw), **{k: J[k] for k in ("b", "V_inv", "g_lm")})
+
+    with mock.patch.object(ba, "_coupling_blocks", lambda Bt, *plan: coupling(J["Bt"], *plan)), \
+            mock.patch.object(ba, "_schur_terms", terms):
+        ours = ba._dense_core(pm_t, *lin_t, p, lam, True)
+    tol_pose, tol_lm, tol_res = JAX_TERMS_STEP_TOL[lam]
+    close(ours[0], theirs[0], tol_pose, "d_pose")
+    close(ours[1], theirs[1], tol_lm, "d_lm")
+    assert float(ours[2]) == pytest.approx(float(theirs[2]), rel=tol_res)
+
+
+def _port_coupling_im(p, Bt):
+    """The port's coupling B B^T from Bt (L, Ml, 6, 3), i-major (6, P, 6, P)
+    as the JAX package lays it out."""
+    P = p.num_poses
+    lm, a, b, target, place = ba._dense_coupling_plan(p)
+    C = ba._coupling_blocks(Bt, lm, a, b, place)
+    return torch.zeros(P * P, 36).index_add_(0, target, C.reshape(-1, 36)).view(P, P, 6, 6).permute(2, 0, 3, 1)
+
+
+@pytest.mark.parametrize("lam", [1e-3, 1.0, 10.0, 100.0])
+def test_dense_coupling_equals_the_jax_packages_with_repeated_slots(benchmark_step_problem, lam):
+    """The JAX package's own Bt (_dense_prep) through the port's plan and
+    coupling (placement per (landmark, pose), the six products) against its
+    _dense_accum_full: within 1e-6 of the largest coupling entry (float32
+    sum order; measured 2.2e-7 to 3.0e-7)."""
+    jp, pm_j, lin_j, p, _, _ = benchmark_step_problem
+    prep = jba._dense_prep(pm_j, *lin_j, jp, jnp.float32(lam), True)
+    S0 = np.asarray(prep["S2"])
+    theirs = S0 - np.asarray(jba._dense_accum_full(jnp.asarray(S0), prep["Bt"], prep["pose_of"]))
+    close(_port_coupling_im(p, torch.from_numpy(np.array(prep["Bt"]))), theirs, 1e-6, "coupling")
+
+
+def test_assembled_s_equals_the_jax_packages(benchmark_step_problem):
+    """The port's assembled S at lambda 100 (block-major (P, P, 6, 6),
+    permuted to i-major) against the JAX package's _dense_prep +
+    _dense_accum_full on the same linearization, repeated slots included:
+    within 2e-6 of the largest entry (measured 1.2e-6; a float32 coupling is
+    2.8e-4 off). At lambda 10 and below each package's own float32 Bt
+    differs, which the placement's bf16 rounding turns into up to 5.7e-6 at
+    lambda 10 (1.3e-6 with the JAX package's Bt): the coupling test above
+    holds the arithmetic there."""
+    jp, pm_j, lin_j, p, pm_t, lin_t = benchmark_step_problem
+    prep = jba._dense_prep(pm_j, *lin_j, jp, jnp.float32(100.0), True)
+    theirs = np.asarray(jba._dense_accum_full(prep["S2"], prep["Bt"], prep["pose_of"]))
+    S4 = ba._dense_assemble(pm_t, *lin_t, p, 100.0, True)[0]
+    close(S4.permute(2, 0, 3, 1), theirs, 2e-6, "S")
+
+
 def test_dense_plateau_floor_copy_is_the_solvers_terms(step_problem):
     """backend/dense_plateau's copy of the Schur terms gives the solver's
     dense step bit for bit at the solver's landmark floor (1e-5) and another
-    step with no floor."""
-    from unittest import mock
-
+    step with no floor. (The solver's step now has the JAX package's
+    coupling arithmetic; the copy is of the terms before it.)"""
     from vision_slam_frontend_tpu_torch.backend import dense_plateau
 
     _, _, _, p, pm_t, lin_t = step_problem
     ref = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
     steps = {}
     for floor in (1e-5, 0.0):
-        with mock.patch.object(ba, "_schur_terms", dense_plateau._schur_terms_with_floor(floor)):
+        with dense_plateau._patched({"_schur_terms": dense_plateau._schur_terms_with_floor(floor)}):
             steps[floor] = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
     assert torch.equal(steps[1e-5][0], ref[0]) and torch.equal(steps[1e-5][1], ref[1])
     assert not torch.equal(steps[0.0][0], ref[0])
@@ -262,20 +385,21 @@ def test_dense_plateau_floor_copy_is_the_solvers_terms(step_problem):
 
 
 def test_dense_plateau_coupling_is_the_jax_packages_compensated_product(step_problem):
-    """backend/dense_plateau's emulated coupling: each pair's 6x6 block from
-    bf16 hi/mid/lo parts (hh + mm + hm + mh + hl + lh, float32 sums) equals
-    the JAX package's _bbt_compensated on the same Bt within float32 sum-order
-    rounding (2e-6 of the largest entry); the dense step through that
-    assembly is a finite step of the solver's shape.
+    """The compensated products alone (dense_plateau.compensated_coupling:
+    each pair's 6x6 block from bf16 hi/mid/lo parts, hh + mm + hm + mh + hl +
+    lh, float32 sums) equal the JAX package's _bbt_compensated on the same Bt
+    within float32 sum-order rounding (2e-6 of the largest entry) where each
+    (landmark, pose) holds one slot.
 
     With slots drawn with replacement (the BA benchmark's observers,
     bench_ba.py:56), a landmark can hold two slots on one pose: the JAX
     package then rounds that pose's summed parts to bf16 as it places them.
-    placed_parts' emulation equals _bbt_compensated within the same 2e-6,
-    and the port's float32 coupling differs from it by more than that on
-    the blocks of the repeated (landmark, pose) pairs."""
-    from unittest import mock
-
+    The solver's coupling (ba._coupling_blocks over ba._group_pairs, which
+    now holds placed_parts and _six_products) equals _bbt_compensated within
+    the same 2e-6, and dense_plateau's float32 ablation differs from it by
+    more than that on the blocks of the repeated (landmark, pose) pairs. The
+    dense step through the compensated-products ablation is a finite step
+    of the solver's shape, near the solver's."""
     from vision_slam_frontend_tpu_torch.backend import dense_plateau
 
     rng = np.random.default_rng(21)
@@ -298,15 +422,17 @@ def test_dense_plateau_coupling_is_the_jax_packages_compensated_product(step_pro
     assert len(repeats) >= 3
     oh = pose_dup[:, :, None] == np.arange(P)[None, None, :]
     theirs = np.asarray(jba._bbt_compensated(jnp.asarray(Bt), jnp.asarray(oh)))
-    parts = dense_plateau.placed_parts(Btt, torch.from_numpy(pose_dup), torch.ones((L, Ml), dtype=torch.bool))
+    lm, a, b, place = ba._group_pairs(torch.from_numpy(pose_dup), torch.ones((L, Ml), dtype=torch.bool))
+    assert len(lm) < L * Ml * Ml
+    C = ba._coupling_blocks(Btt, lm, a, b, place).double().numpy()
     placed = np.zeros((6, P, 6, P), np.float64)
+    for n in range(len(lm)):
+        placed[:, pose_dup[lm[n], a[n]], :, pose_dup[lm[n], b[n]]] += C[n]
     port_f32 = np.zeros((6, P, 6, P), np.float64)
     for a in range(Ml):
         for b in range(Ml):
-            C = dense_plateau._six_products([x[:, a] for x in parts], [x[:, b] for x in parts]).double().numpy()
-            F = torch.einsum("lic,ljc->lij", Btt[:, a], Btt[:, b]).double().numpy()  # the port's float32 products
+            F = dense_plateau._float32_coupling(Btt[:, a], Btt[:, b]).double().numpy()
             for l in range(L):
-                placed[:, pose_dup[l, a], :, pose_dup[l, b]] += C[l]
                 port_f32[:, pose_dup[l, a], :, pose_dup[l, b]] += F[l]
     close(placed, theirs, 2e-6, "placed coupling")
     rep = np.zeros((P, P), bool)
@@ -316,7 +442,7 @@ def test_dense_plateau_coupling_is_the_jax_packages_compensated_product(step_pro
     assert diff[rep].max() > 2e-6 * np.abs(theirs).max()
 
     _, _, _, p, pm_t, lin_t = step_problem
-    with mock.patch.object(ba, "_dense_assemble", dense_plateau._dense_assemble_compensated):
+    with dense_plateau._patched(dense_plateau.COMPENSATED_PRODUCTS):
         d_pose, d_lm, _ = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
     ref = ba._dense_core(pm_t, *lin_t, p, 1e-3, True)
     assert d_pose.shape == ref[0].shape and bool(torch.isfinite(d_pose).all() and torch.isfinite(d_lm).all())
@@ -335,6 +461,8 @@ def small_benchmark_problem():
 
 
 def test_dense_plateau_placement_trial_keys(small_benchmark_problem):
+    """placement_trial's figures; it now runs the solver as it is, whose
+    coupling is the placement it emulated before."""
     from vision_slam_frontend_tpu_torch.backend import dense_plateau
 
     out = dense_plateau.placement_trial(*small_benchmark_problem)
@@ -345,6 +473,8 @@ def test_dense_plateau_placement_trial_keys(small_benchmark_problem):
 
 
 def test_dense_plateau_schedule_trial_keys(small_benchmark_problem):
+    """schedule_trial's figures; it now runs the former float32 coupling
+    (dense_plateau.FLOAT32_COUPLING), whose stop it studies."""
     from vision_slam_frontend_tpu_torch.backend import dense_plateau
 
     out = dense_plateau.schedule_trial(*small_benchmark_problem)

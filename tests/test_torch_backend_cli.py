@@ -101,10 +101,57 @@ def test_drift_correction_matches_the_jax_package(tmp_path):
 
 # --- the backend CLI -----------------------------------------------------------
 
+# A round of ba.optimize stops after an accepted step whose relative decrease
+# of the cost is below LM_STOP_REL, or at its iteration limit.
+# _histories_part_at_the_stop_rule lets two runs part there only where both
+# sit at that rule: the run that went on was within LM_STOP_FACTOR of it.
+# HISTORY_RTOL: the entries' relative difference over the common length
+# (measured up to 5.7e-4 on synthetic:20, at the 42nd entry, where the
+# descent resumes after three rejections; the two runs meet again within
+# 3e-6 at the end).
+LM_STOP_REL = 1e-6
+LM_STOP_FACTOR = 10.0
+HISTORY_RTOL = 2e-3
+
+
+def _histories_part_at_the_stop_rule(a, b, rtol: float):
+    """Two LM cost histories of one problem: entry by entry within `rtol`
+    over their common length, and of equal length, or one longer by one only
+    where the two runs part at the stop rule: the shorter run's last
+    relative decrease in (0, LM_STOP_REL), so it stopped on the rule; the
+    longer run's decrease at that iteration below LM_STOP_FACTOR *
+    LM_STOP_REL (zero where its step was refused); and its one more entry, its
+    round's last, a decrease below LM_STOP_REL."""
+    n = min(len(a), len(b))
+    np.testing.assert_allclose(a[:n], b[:n], rtol=rtol, atol=0, err_msg="cost histories")
+    if len(a) == len(b):
+        return
+    short, longer = (a, b) if len(a) < len(b) else (b, a)
+    assert len(longer) == n + 1, (len(a), len(b))
+
+    def dec(h, i):
+        return (h[i - 1] - h[i]) / h[i - 1]
+
+    assert 0 < dec(short, n - 1) < LM_STOP_REL, dec(short, n - 1)
+    assert 0 <= dec(longer, n - 1) < LM_STOP_FACTOR * LM_STOP_REL, dec(longer, n - 1)
+    assert 0 <= dec(longer, n) < LM_STOP_REL, dec(longer, n)
+
+
 def test_backend_cli_on_cpu_equals_the_jax_cli(frontend_npz, tmp_path, capsys):
     """slam_backend --device cpu against the JAX package's slam_backend on the
-    port's synthetic:20 problem: the same keys, shapes and dtypes; poses
-    within 1e-3 m, landmarks within 1e-2 m, final cost within 1e-4."""
+    port's synthetic:20 problem: the same keys, shapes and dtypes, the cost
+    history's length aside; the cost histories entry by entry within
+    HISTORY_RTOL and of equal length, or parting at the LM stop rule
+    (_histories_part_at_the_stop_rule); poses within 1e-3 m, landmarks within
+    1e-2 m, final cost within 1e-4.
+
+    A round of dense LM stops at a relative decrease below 1e-6 (cost about
+    127 here) or after 15 iterations, and float32 rounding at the
+    convergence tail can cross the first an iteration early or late: in the
+    last of its three rounds the port's run here stops on the rule after 14
+    iterations (47 entries, its last decrease 4.2e-7), the JAX package's
+    decreases 2.4e-6 at that iteration and 6.0e-8 at the round's 15th (48
+    entries)."""
     from vision_slam_frontend_tpu.cli import slam_backend as jcli
     from vision_slam_frontend_tpu_torch.cli import slam_backend
 
@@ -118,9 +165,12 @@ def test_backend_cli_on_cpu_equals_the_jax_cli(frontend_npz, tmp_path, capsys):
     a, b = np.load(ours), np.load(theirs)
     assert sorted(a.files) == sorted(b.files)
     for k in b.files:
-        assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype, k
+        assert a[k].dtype == b[k].dtype, k
+        if k != "ba_cost_history":
+            assert a[k].shape == b[k].shape, k
         if a[k].dtype.kind in "iub":
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    _histories_part_at_the_stop_rule(a["ba_cost_history"], b["ba_cost_history"], HISTORY_RTOL)
     np.testing.assert_allclose(a["nodes_loc"], b["nodes_loc"], atol=1e-3)
     np.testing.assert_allclose(a["nodes_quat"], b["nodes_quat"], atol=1e-3)
     np.testing.assert_allclose(a["ba_landmarks"], b["ba_landmarks"], atol=1e-2)

@@ -94,13 +94,40 @@ def mesh8():
     return jax_mesh(8)
 
 
-def test_landmark_sharded_dense_matches_one_device_and_the_reference(mesh8):
-    """tests/test_parallel.py::test_sharded_dense_matches_single_device's
-    problem and checks, on 8 in-process shards: against the port's
-    single-device dense solve (poses within 1e-4) and the JAX package's
-    landmark-sharded solve on its 8-device mesh (poses within 2e-2, that
-    test's tolerance, and ATE within 5e-3); 3 collectives per LM iteration."""
+def _with_repeated_slots(jp, every: int = 2, seed: int = 0):
+    """jp with a second observation of every `every`-th landmark on the pose
+    of its first one (its pixel, and its right pixel where the problem is
+    stereo, moved by one draw of 0.3 px of noise), as the BA benchmark's
+    observers drawn with replacement give; the gather tables rebuilt.
+    Returns (problem, the number of repeated slots)."""
+    from vision_slam_frontend_tpu.backend.tracks import build_gather_tables
+
+    rng = np.random.default_rng(seed)
+    op, ol, px = (np.asarray(x) for x in (jp.obs_pose, jp.obs_landmark, jp.obs_pixel))
+    first = np.unique(ol, return_index=True)[1]
+    first = first[ol[first] % every == 0]
+    noise = rng.normal(0, 0.3, (first.size, 2)).astype(np.float32)
+    op, ol = np.concatenate([op, op[first]]), np.concatenate([ol, ol[first]])
+    stereo = {}
+    if jp.obs_pixel_right is not None:
+        pr, mr = np.asarray(jp.obs_pixel_right), np.asarray(jp.obs_right_mask)
+        stereo = dict(obs_pixel_right=jnp.asarray(np.concatenate([pr, pr[first] + noise])),
+                      obs_right_mask=jnp.asarray(np.concatenate([mr, mr[first]])))
+    px = np.concatenate([px, px[first] + noise])
+    tables = build_gather_tables(op, ol, np.ones(op.size, bool), jp.poses_t.shape[0], jp.landmarks.shape[0])
+    return jp.replace(
+        obs_pose=jnp.asarray(op, jnp.int32), obs_landmark=jnp.asarray(ol, jnp.int32), obs_pixel=jnp.asarray(px),
+        obs_mask=jnp.ones(op.size, bool), **stereo,
+        **dict(zip(("pose_obs", "pose_obs_mask", "lm_obs", "lm_obs_mask"), (jnp.asarray(t) for t in tables))),
+    ), int(first.size)
+
+
+def _landmark_sharded_dense_check(mesh8, repeated: bool):
+    """The checks of the two landmark-sharded dense tests below."""
     jcam, jp, gt_t, _ = synthetic_ba(pose_noise=0.05, lm_noise=0.2, px_noise=0.3, seed=22)
+    if repeated:
+        jp, n = _with_repeated_slots(jp)
+        assert n == 58
     cam, p = port_cam(jcam), port_problem(jp)
     solver = ba.BASolverConfig(max_iterations=8, schur_solver="dense")
     single, _ = ba.optimize(p, cam=cam, solver=solver)
@@ -113,6 +140,23 @@ def test_landmark_sharded_dense_matches_one_device_and_the_reference(mesh8):
     ate = ate_rmse(ours.poses_t.numpy(), gt_t, align=False)
     assert abs(ate - ate_rmse(np.asarray(theirs.poses_t), gt_t, align=False)) < 5e-3 and ate < 0.02
     assert mesh.calls == 3 * info["iterations"]
+
+
+def test_landmark_sharded_dense_matches_one_device_and_the_reference(mesh8):
+    """tests/test_parallel.py::test_sharded_dense_matches_single_device's
+    problem and checks, on 8 in-process shards: against the port's
+    single-device dense solve (poses within 1e-4) and the JAX package's
+    landmark-sharded solve on its 8-device mesh (poses within 2e-2, that
+    test's tolerance, and ATE within 5e-3); 3 collectives per LM iteration."""
+    _landmark_sharded_dense_check(mesh8, repeated=False)
+
+
+def test_landmark_sharded_dense_with_repeated_slots_matches_the_reference(mesh8):
+    """The test above on the same problem with a second slot of every other
+    landmark on one of its poses (_with_repeated_slots, 58 repeats), which
+    each shard places per (landmark, pose) before its coupling products, as
+    the JAX package does: the same checks."""
+    _landmark_sharded_dense_check(mesh8, repeated=True)
 
 
 def test_observation_sharded_pcg_matches_one_device_and_the_reference(mesh8):

@@ -1,6 +1,7 @@
-"""Segment BA on two problems, in either package, on the CPU: the figures the
-port's segment solver is held to where the JAX package's own segment solver
-is the yardstick (chip_smoke.py phase 11 (b) and (c); ROADMAP C).
+"""Segment BA on two problems, and the landmark-sharded dense solve on a
+third, in either package, on the CPU: the figures the port's distributed
+solvers are printed beside where the JAX package's own solver is the
+yardstick (chip_smoke.py phase 11 (b), (c) and (d); ROADMAP C).
 
   benchmark  the BA benchmark's monocular problem (io/synthetic.make_problem,
              5 observations per landmark, clean), n_seg 8, sweeps 2, polish 3,
@@ -11,9 +12,14 @@ is the yardstick (chip_smoke.py phase 11 (b) and (c); ROADMAP C).
              pose_walk 0.02, pose_noise 0.01, seed 7), n_seg 8, sweeps 2,
              polish 2, 8 LM iterations: final cost beside the initial and the
              ground truth's.
+  sharded    chip_smoke.py phase 7 (a)'s problem (synthetic_ba_problem's
+             defaults), the landmark-sharded dense solve over 2 shards (the
+             JAX package's on a 2-device CPU mesh), 25 LM iterations: final
+             cost and ATE.
 
     python torch_segment_cases.py benchmark 500 100000 jax
     python torch_segment_cases.py drifting 4096 100000 port
+    python torch_segment_cases.py sharded 64 4096 jax
 
 Imports the JAX package only for `jax` (the port's CPU parity tests import it
 too); chip_smoke.py imports nothing of this file.
@@ -49,6 +55,10 @@ def run(case: str, P: int, L: int, package: str) -> dict:
         solver = dict(max_iterations=25, cg_iterations=32)
         segments = dict(n_seg=8, sweeps=2, polish_iterations=3)
         gt = None
+    elif case == "sharded":
+        cam, problem, gt_t, _ = synthetic_ba_problem(P=P, L=L, device="cpu")
+        solver = dict(max_iterations=25, schur_solver="dense")
+        gt = None
     elif case == "drifting":
         cam, problem, gt_t, gt_lm = synthetic_ba_problem(P=P, L=L, obs_per_lm=4, seed=7, stereo=True,
                                                          pose_noise=0.01, pose_walk=0.02, device="cpu")
@@ -59,11 +69,21 @@ def run(case: str, P: int, L: int, package: str) -> dict:
     else:
         raise ValueError(f"unknown case {case!r}")
     t0 = time.perf_counter()
-    if package == "port":
+    if package == "port" and case == "sharded":
+        from vision_slam_frontend_tpu_torch.parallel.mesh import LocalShards
+        from vision_slam_frontend_tpu_torch.parallel.sharded_ba import optimize_sharded_dense
+
+        opt, info = optimize_sharded_dense(problem, LocalShards(2, "cpu"), cam=cam, solver=ba.BASolverConfig(**solver))
+        poses = opt.poses_t.numpy()
+        gt_cost = None
+    elif package == "port":
         opt, info = optimize_segments(problem, cam=cam, solver=ba.BASolverConfig(**solver), **segments)
         poses = opt.poses_t.numpy()
         gt_cost = None if gt is None else float(ba.compute_cost(cam, gt, 4.0, 30.0, 60.0, True))
     elif package == "jax":
+        import os
+
+        os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=2")
         import jax
         import jax.numpy as jnp
 
@@ -77,7 +97,14 @@ def run(case: str, P: int, L: int, package: str) -> dict:
             return JaxProblem(**{k: jnp.asarray(v) for k, v in p.to_numpy().items()})
 
         jcam = JaxCamera(**{f: jnp.asarray(getattr(cam, f).numpy()) for f in JaxCamera.__dataclass_fields__})
-        opt, info = jax_segments(jax_problem(problem), cam=jcam, solver=jba.BASolverConfig(**solver), **segments)
+        if case == "sharded":
+            from vision_slam_frontend_tpu.parallel import make_mesh
+            from vision_slam_frontend_tpu.parallel.sharded_ba import optimize_sharded_dense
+
+            opt, info = optimize_sharded_dense(jax_problem(problem), make_mesh(2), cam=jcam,
+                                               solver=jba.BASolverConfig(**solver))
+        else:
+            opt, info = jax_segments(jax_problem(problem), cam=jcam, solver=jba.BASolverConfig(**solver), **segments)
         poses = np.asarray(opt.poses_t)
         w = tuple(jnp.float32(x) for x in (4.0, 30.0, 60.0))
         gt_cost = None if gt is None else float(jba.compute_cost(jcam, jax_problem(gt), *w, True))

@@ -4,7 +4,8 @@ of backend/ba.py).
   - Landmark blocks V_l (3x3) are eliminated exactly per landmark (batched
     closed-form inverses): the classic Schur complement.
   - The reduced camera system S = U - W V^{-1} W^T is solved either densely
-    (S assembled in float32 on the device, one Cholesky) or matrix-free by
+    (S assembled on the device, its coupling W V^{-1} W^T in the JAX
+    package's compensated bfloat16 arithmetic; one Cholesky) or matrix-free by
     preconditioned CG (block-Jacobi preconditioner from U's diagonal).
   - The gauge is fixed by freezing pose 0; LM damping with accept/reject on
     the true cost.
@@ -486,18 +487,109 @@ def _s_init(U_diag, Ji, Jj, odom_i, odom_j, block_poses: int | None = None):
     return S4
 
 
+def _split_bf16(x):
+    """x (..., 3) = hi + mid + lo, each part a bfloat16 value held in x's
+    dtype (the JAX package's three-way split of the coupling's Bt), stacked
+    as (..., 3 parts, 3)."""
+    hi = x.to(torch.bfloat16).to(x.dtype)
+    r = x - hi
+    mid = r.to(torch.bfloat16).to(x.dtype)
+    return torch.stack((hi, mid, (r - mid).to(torch.bfloat16).to(x.dtype)), -2)
+
+
+def _slot_groups(pose_of, mask):
+    """The (landmark, pose) groups of the landmark-major observation slots
+    (pose_of, mask: (L, Ml)): (place (L, Ml, Ml) bool, slot b's parts sum
+    into slot a: a is its group's first valid slot, b a valid slot of that
+    group; first (L, Ml) bool, a slot that heads its group)."""
+    same = (pose_of[:, :, None] == pose_of[:, None, :]) & mask[:, :, None] & mask[:, None, :]
+    idx = torch.arange(pose_of.shape[1], device=pose_of.device)
+    first = mask & ~(same & (idx[None, None, :] < idx[None, :, None])).any(-1)
+    return same & first[:, :, None], first
+
+
+def _group_pairs(pose_of, mask):
+    """Every pair (a, b) of one landmark's (landmark, pose) groups, each
+    named by its first slot: (lm, a, b, place), place as _slot_groups'."""
+    place, first = _slot_groups(pose_of, mask)
+    lm, a, b = (first[:, :, None] & first[:, None, :]).nonzero(as_tuple=True)
+    return lm, a, b, place
+
+
+def placed_parts(Bt, place):
+    """The JAX package's placement of Bt (L, Ml, 6, 3) (its _bbt_compensated's
+    place(), a dot_general with a bfloat16 output): per (landmark, pose), the
+    hi, mid and lo parts of that pose's slots summed in float32 (one batched
+    product over the three parts side by side) and each sum rounded once to
+    bfloat16. Each sum is held on its group's first slot (`place`,
+    _slot_groups'), the other slots are zero. Returns (L, Ml, 6, 3, 3), the
+    parts on axis 3 (_split_bf16's), in Bt's dtype."""
+    L, Ml = Bt.shape[:2]
+    parts = _split_bf16(Bt)
+    summed = torch.bmm(place.to(Bt.dtype), parts.reshape(L, Ml, 54)).view_as(parts)
+    return summed.to(torch.bfloat16).to(Bt.dtype)
+
+
+def _compensated_slabs(parts):
+    """A block's bfloat16 parts (..., 6, 3, 3) (hi, mid, lo on axis -2, as
+    _split_bf16 stacks them) laid side by side as a left slab [h, m, h, m, h,
+    l] and a right slab [h, m, m, h, l, h], each (..., 6, 18): a's left slab
+    times b's right slab transposed is hh + mm + hm + mh + hl + lh (ml and
+    ll dropped), every product exact and the sum float32."""
+    h, m, l = parts.unbind(-2)
+    return torch.cat((h, m, h, m, h, l), -1), torch.cat((h, m, m, h, l, h), -1)
+
+
+def _six_products(pa, pb):
+    """hh + mm + hm + mh + hl + lh of two (n, 6, 3) blocks' bfloat16 parts
+    (pa, pb: (n, 6, 3, 3), _split_bf16's) as one batched product over
+    _compensated_slabs: the JAX package's six products with float32 sums;
+    ml and ll dropped."""
+    return torch.bmm(_compensated_slabs(pa)[0], _compensated_slabs(pb)[1].transpose(1, 2))
+
+
+def _coupling_blocks(Bt, lm, a, b, place):
+    """The coupling term's 6x6 blocks B_p B_q^T, one per pair of (landmark,
+    pose) groups of a _group_pairs plan, in the JAX package's arithmetic:
+    Bt = W G^{-T} placed per group (placed_parts), then the six products of
+    the two groups' parts (_six_products' one batched product), group a's
+    on the left. (n, 6, 6)."""
+    left, right = _compensated_slabs(placed_parts(Bt, place))  # (L, Ml, 6, 18) each
+    return torch.bmm(left[lm, a], right[lm, b].transpose(1, 2))
+
+
 def _dense_coupling_plan(problem: BAProblem, block_poses: int | None = None):
     """The coupling term's static plan, built once per round (one host
-    sync): every pair (a, b) of valid observation slots of each landmark l,
-    as (l, a, b, target block pose(a) * Pb + pose(b) % Pb) in _s_init's
-    layout. S -= Bt[l, a] Bt[l, b]^T at each target, about
-    L * obs_per_landmark^2 6x6 blocks."""
+    sync): every pair of (landmark, pose) groups of each landmark, a group
+    being the landmark's valid slots on one pose (the benchmark draws
+    observers with replacement, so a landmark can hold two slots on a pose).
+    Returns (lm, a, b, target, place): the pairs by their groups' first
+    slots a, b (_group_pairs), each pair's target block pose(a) * Pb +
+    pose(b) % Pb in _s_init's layout, and the groups' placement (L, Ml, Ml)."""
     Pb = block_poses or problem.num_poses
-    Mp = problem.pose_obs.shape[1]
-    mask = problem.lm_obs_mask
-    lm, a, b = (mask[:, :, None] & mask[:, None, :]).nonzero(as_tuple=True)
-    pose_of = problem.lm_obs // Mp  # (L, Ml) pose of each landmark-observation slot
-    return lm, a, b, pose_of[lm, a] * Pb + pose_of[lm, b] % Pb
+    pose_of = problem.lm_obs // problem.pose_obs.shape[1]  # (L, Ml) pose of each landmark-observation slot
+    lm, a, b, place = _group_pairs(pose_of, problem.lm_obs_mask)
+    return lm, a, b, pose_of[lm, a] * Pb + pose_of[lm, b] % Pb, place
+
+
+def _dense_terms(
+    pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem: BAProblem, lm_damping, fix_first: bool,
+    block_poses: int | None = None,
+):
+    """_dense_assemble's terms before the coupling: (the Schur terms
+    (_schur_terms'), S4 (P, Pb, 6, 6) without the coupling (_s_init's block
+    diagonal and odometry blocks, float32), Bt = W G^{-T} (L, Ml, 6, 3) with
+    W = Jp^T Jl per slot and V = G G^T)."""
+    P = problem.num_poses
+    L = problem.num_landmarks
+    t = _schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor=True)
+    lm_tbl, lm_mask = t["lm_tbl"], t["lm_mask"]
+    Mp, Ml = Jp_pm.shape[1], lm_tbl.shape[1]
+    Ginv = _inv_lower3(_chol3(t["V"]))  # V^{-1} = Ginv^T Ginv
+    S4 = _s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j, block_poses)
+    W_pm = torch.einsum("pmij,pmik->pmjk", Jp_pm, Jl_pm)  # (P, Mp, 6, 3)
+    W_lm = W_pm.reshape(P * Mp, 18)[lm_tbl].reshape(L, Ml, 6, 3) * lm_mask[..., None]
+    return t, S4, torch.einsum("lmij,lcj->lmic", W_lm, Ginv)
 
 
 def _dense_assemble(
@@ -506,29 +598,16 @@ def _dense_assemble(
 ):
     """The explicit reduced camera matrix of a damped GN step,
         S = U + lambda*I - B B^T,   B = W V^{-1/2}  (W = Jp^T Jl per pair),
-    assembled in float32: the block diagonal and odometry blocks, then each
-    landmark's observation pairs' 6x6 products, reduced into S by the
-    deterministic scatter. `plan` is _dense_coupling_plan(problem), built
-    here when None; `block_poses` is _s_init's. Returns (S4 (P, Pb, 6, 6),
-    b, free, V_inv, g_lm)."""
-    P = problem.num_poses
-    L = problem.num_landmarks
-    t = _schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor=True)
-    lm_tbl, lm_mask = t["lm_tbl"], t["lm_mask"]
-    Mp, Ml = Jp_pm.shape[1], lm_tbl.shape[1]
-    Ginv = _inv_lower3(_chol3(t["V"]))  # V^{-1} = Ginv^T Ginv
-
-    # --- Dense S: diagonal U + odometry + damping, odometry off-diagonal blocks.
-    S4 = _s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j, block_poses)
-
-    # --- Coupling: S -= B B^T, B_l = W_l G_l^{-T}, one 6x6 product per pair
-    # of one landmark's observations.
-    W_pm = torch.einsum("pmij,pmik->pmjk", Jp_pm, Jl_pm)  # (P, Mp, 6, 3)
-    W_lm = W_pm.reshape(P * Mp, 18)[lm_tbl].reshape(L, Ml, 6, 3) * lm_mask[..., None]
-    Bt = torch.einsum("lmij,lcj->lmic", W_lm, Ginv)  # (L, Ml, 6, 3) = W G^{-T}
-    lm, a, bb, target = _dense_coupling_plan(problem, block_poses) if plan is None else plan
-    C = torch.einsum("nic,njc->nij", Bt[lm, a], Bt[lm, bb])
-    _scatter_add_(S4.view(P * S4.shape[1], 36), target, -C.reshape(-1, 36))
+    the block diagonal and odometry blocks in float32 (_dense_terms), the
+    coupling B B^T in the JAX package's compensated bfloat16 arithmetic
+    (_coupling_blocks: one 6x6 block per pair of each landmark's (landmark,
+    pose) groups), reduced into S by the deterministic scatter. `plan` is
+    _dense_coupling_plan(problem), built here when None; `block_poses` is
+    _s_init's. Returns (S4 (P, Pb, 6, 6), b, free, V_inv, g_lm)."""
+    t, S4, Bt = _dense_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, block_poses)
+    lm, a, bb, target, place = _dense_coupling_plan(problem, block_poses) if plan is None else plan
+    C = _coupling_blocks(Bt, lm, a, bb, place)  # S -= B B^T
+    _scatter_add_(S4.view(-1, 36), target, -C.reshape(-1, 36))
     return S4, t["b"], t["free"], t["V_inv"], t["g_lm"]
 
 
@@ -568,9 +647,12 @@ def _dense_solve_core(S4, b, free):
     # d = diag(S)^{-1/2} is exact (D S D with the solve rescaled).
     d = torch.rsqrt(torch.diagonal(S2, dim1=-2, dim2=-1).clamp(min=1e-20))
     S2e = S2 * d[..., :, None] * d[..., None, :]
-    # Assembly-noise ridge: the f32 coupling accumulates ~1e-7 relative
-    # error of |S|, which swamps the exact system's smallest eigenvalues at
-    # small LM damping. A 1e-3 ridge on the EQUILIBRATED matrix is
+    # Assembly-noise ridge (the JAX package's too): S's float32 sums and the
+    # compensated bf16 coupling (ml and ll dropped) leave ~1e-7 relative
+    # error of |S| where each (landmark, pose) holds one slot, more where a
+    # group's summed parts are rounded to bf16 as they are placed; that
+    # swamps the exact system's smallest eigenvalues at small LM damping.
+    # A 1e-3 ridge on the EQUILIBRATED matrix is
     # Marquardt-style diag-relative damping: it keeps S positive definite
     # while perturbing the step by ~0.1% of each coordinate's curvature.
     S2e = S2e + 1e-3 * _eye(6 * Pb, S2e)

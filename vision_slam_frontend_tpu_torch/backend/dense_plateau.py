@@ -1,7 +1,10 @@
 """The dense-BA plateau study (ROADMAP C): at the BA benchmark's shape
-(P=500, L=100k, clean), dense LM stops above the ground-truth cost.
+(P=500, L=100k, clean), the port's dense LM with a float32 coupling stopped
+after 14 of 25 iterations, above the cost the JAX package reaches. The
+solver now takes the JAX package's coupling arithmetic (ba._coupling_blocks);
+the former assembly stays here as an ablation.
 
-Four measurements, on the device the caller names:
+Six measurements, on the device the caller names:
 - `first_step`: the first dense LM step at lambda 1e-3 in float32 against
   the same step with every tensor in float64 (the solver's arithmetic path);
 - `ridge_trial`: dense LM under each rule of RIDGES for the equilibrated
@@ -10,23 +13,24 @@ Four measurements, on the device the caller names:
 - `floor_trial`: dense LM under each of FLOORS for the landmarks' damping
   floor (ba._schur_terms' fixed 1e-5 of each landmark block's trace), in
   float32 and float64, on a copy of those terms; the solver keeps 1e-5.
-- `coupling_trial`: dense LM in float32 on a copy of ba._dense_assemble
-  whose coupling B B^T is the JAX package's compensated bf16 arithmetic
-  (backend/ba.py:603-664 there): Bt split into bf16 hi, mid and lo parts,
-  the six products hh + mm + hm + mh + hl + lh with float32 accumulation,
-  ml and ll dropped. Beside it the port's own float32 run and the JAX
-  package's CPU figures (REFERENCE_CPU). The solver keeps its float32
-  coupling.
-- `placement_trial`: the same assembly with the JAX package's placement
-  rounding too: it places each landmark's slots per pose in bfloat16
-  (backend/ba.py:643-645 there), so where a landmark has two slots on one
-  pose (the benchmark draws observers with replacement) the hi, mid and lo
-  parts are summed per (landmark, pose) in float32 and each sum rounded to
-  bfloat16 before the six products.
-- `schedule_trial`: the port's float32 dense LM run to its stop, then one
-  dense step from that state at each lambda of SCHEDULE_LAMBDAS: the cost
-  after it, beside the stop cost (which lambda the shared LM schedule would
-  need to go on).
+- `coupling_trial`: two ablations of the coupling B B^T, each dense LM in
+  float32 on a copy of ba._dense_assemble whose plan pairs observation
+  slots, not (landmark, pose) groups: `port_float32`, the port's former
+  assembly (one float32 product per slot pair; its stop at 43,927.2 on the
+  card is ROADMAP C's record), and `compensated`, the JAX package's six
+  compensated bf16 products (backend/ba.py:603-664 there) without its
+  placement rounding. Beside them the JAX package's CPU figures
+  (REFERENCE_CPU).
+- `placement_trial`: dense LM with the solver as it is, whose coupling is
+  the JAX package's arithmetic with its placement rounding (ba.placed_parts:
+  where a landmark has two slots on one pose, as the benchmark's observers
+  drawn with replacement give, their hi, mid and lo parts are summed per
+  (landmark, pose) in float32 and each sum rounded to bfloat16 before the
+  six products), beside the reference's CPU figures.
+- `schedule_trial`: the former float32 dense LM (coupling_trial's
+  `port_float32`) run to its stop, then one dense step from that state at
+  each lambda of SCHEDULE_LAMBDAS: the cost after it, beside the stop cost
+  (which lambda the shared LM schedule would need to go on).
 
 Run: python -m vision_slam_frontend_tpu_torch.backend.dense_plateau
 [--device cuda] (one JSON line per measurement; about a minute on an H100).
@@ -71,14 +75,15 @@ SCHEDULE_LAMBDAS = tuple(10.0**k for k in range(-9, 5))
 # The JAX package's dense LM at SHAPE on the CPU (its optimize with
 # BASolverConfig(max_iterations=25, schur_solver="dense", cg_iterations=32)
 # on bench_ba.make_problem(500, 100_000, 5, clean=True)): the figures
-# coupling_trial's emulated run is held against.
+# _follows_reference holds a run against.
 REFERENCE_CPU = dict(cost=42_009.371, iterations=25, accepted=17, rejected=[4, 5, 6, 11, 17, 18, 20, 23],
                      ate=0.02509, cost_after_step1=2_080_473.875)
 
 
-# ROADMAP.md C's CPU figures at SHAPE (float32): placement_trial's emulation,
-# and the float32 run's stop with the JAX package's first accepted lambda when
-# started from that state. Printed beside the card's; nothing is held to them.
+# ROADMAP.md C's CPU figures at SHAPE (float32): the placement emulation that
+# the solver's coupling now is, and the former float32 run's stop with the
+# JAX package's first accepted lambda when started from that state. Printed
+# beside the card's; nothing is held to them.
 PLACEMENT_CPU = dict(cost=42_058.1, iterations=25, accepted=19, rejected=[4, 5, 6, 9, 15, 21], ate=0.0274)
 SCHEDULE_CPU = dict(stop_cost=43_844.9, reference_accepted_at=16.4)
 
@@ -187,104 +192,67 @@ def _schur_terms_with_floor(floor: float):
     return terms
 
 
-def _split_bf16(x):
-    """x = hi + mid + lo, each part a bfloat16 value held in x's dtype (the
-    JAX package's three-way split of the coupling's Bt)."""
-    hi = x.to(torch.bfloat16).to(x.dtype)
-    r = x - hi
-    mid = r.to(torch.bfloat16).to(x.dtype)
-    return hi, mid, (r - mid).to(torch.bfloat16).to(x.dtype)
-
-
 def compensated_coupling(Ba, Bb):
     """Each pair's 6x6 block Ba Bb^T (Ba, Bb: (n, 6, 3)) as the JAX
-    package's compensated bf16 products: hh + mm + hm + mh + hl + lh, each a
-    product of bfloat16 parts accumulated in float32 (exact products, float32
-    sums), ml and ll dropped, summed in its order."""
-    return _six_products(_split_bf16(Ba), _split_bf16(Bb))
+    package's compensated bf16 products without its placement:
+    hh + mm + hm + mh + hl + lh of each block's own parts (ba._split_bf16,
+    ba._six_products)."""
+    return ba._six_products(ba._split_bf16(Ba), ba._split_bf16(Bb))
 
 
-def _six_products(pa, pb):
-    """hh + mm + hm + mh + hl + lh of two (n, 6, 3) blocks' bfloat16 parts
-    (each held in float32), products accumulated in float32, in the JAX
-    package's order; ml and ll are dropped."""
-    ha, ma, la = pa
-    hb, mb, lb = pb
-
-    def dot(x, y):
-        return torch.einsum("nic,njc->nij", x, y)
-
-    return dot(ha, hb) + dot(ma, mb) + dot(ha, mb) + dot(ma, hb) + dot(ha, lb) + dot(la, hb)
-
-
-def _slot_groups(pose_of, mask):
-    """(same (L, Ml, Ml): valid slots a, b of one landmark on one pose;
-    first (L, Ml): a valid slot with no earlier slot on its pose)."""
-    same = (pose_of[:, :, None] == pose_of[:, None, :]) & mask[:, :, None] & mask[:, None, :]
-    idx = torch.arange(pose_of.shape[1], device=pose_of.device)
-    return same, mask & ~(same & (idx[None, None, :] < idx[None, :, None])).any(-1)
-
-
-def placed_parts(Bt, pose_of, mask):
-    """The JAX package's placement of Bt (L, Ml, 6, 3): per (landmark,
-    pose), the hi, mid and lo parts of that pose's valid slots summed in
-    float32 and each sum rounded to bfloat16. Each sum is held on the first
-    slot of its (landmark, pose) group, the group's other slots are zero, so
-    a pair plan over slots counts every pose pair once. Returns (hi, mid, lo),
-    each (L, Ml, 6, 3) in Bt's dtype."""
-    same, first = _slot_groups(pose_of, mask)
-    out = []
-    for part in _split_bf16(Bt):
-        summed = torch.einsum("lab,lbic->laic", same.to(part.dtype), part)
-        out.append(torch.where(first[..., None, None], summed.to(torch.bfloat16).to(part.dtype), 0.0))
-    return tuple(out)
+def _slot_pair_plan(problem, block_poses=None):
+    """The port's former coupling plan: every pair (a, b) of valid
+    observation slots of each landmark l, as (l, a, b, target block
+    pose(a) * Pb + pose(b) % Pb) in ba._s_init's layout."""
+    Pb = block_poses or problem.num_poses
+    mask = problem.lm_obs_mask
+    lm, a, b = (mask[:, :, None] & mask[:, None, :]).nonzero(as_tuple=True)
+    pose_of = problem.lm_obs // problem.pose_obs.shape[1]
+    return lm, a, b, pose_of[lm, a] * Pb + pose_of[lm, b] % Pb
 
 
 def _dense_assemble_with(coupling):
-    """A copy of ba._dense_assemble whose coupling blocks are
-    `coupling(Bt, problem, lm, a, b)` -> (n, 6, 6) for the plan's slot pairs."""
+    """A copy of ba._dense_assemble over a _slot_pair_plan, whose coupling
+    blocks are `coupling(Ba, Bb)` -> (n, 6, 6) for the plan's slot pairs."""
 
     def assemble(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan=None, block_poses=None):
-        P = problem.num_poses
-        L = problem.num_landmarks
-        t = ba._schur_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, trace_floor=True)
-        lm_tbl, lm_mask = t["lm_tbl"], t["lm_mask"]
-        Mp, Ml = Jp_pm.shape[1], lm_tbl.shape[1]
-        Ginv = ba._inv_lower3(ba._chol3(t["V"]))
-        S4 = ba._s_init(t["U_diag"], Ji, Jj, problem.odom_i, problem.odom_j, block_poses)
-        W_pm = torch.einsum("pmij,pmik->pmjk", Jp_pm, Jl_pm)
-        W_lm = W_pm.reshape(P * Mp, 18)[lm_tbl].reshape(L, Ml, 6, 3) * lm_mask[..., None]
-        Bt = torch.einsum("lmij,lcj->lmic", W_lm, Ginv)
-        lm, a, bb, target = ba._dense_coupling_plan(problem, block_poses) if plan is None else plan
-        C = coupling(Bt, problem, lm, a, bb)
-        ba._scatter_add_(S4.view(P * S4.shape[1], 36), target, -C.reshape(-1, 36))
+        t, S4, Bt = ba._dense_terms(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, block_poses)
+        lm, a, bb, target = _slot_pair_plan(problem, block_poses) if plan is None else plan
+        C = coupling(Bt[lm, a], Bt[lm, bb])
+        ba._scatter_add_(S4.view(-1, 36), target, -C.reshape(-1, 36))
         return S4, t["b"], t["free"], t["V_inv"], t["g_lm"]
 
     return assemble
 
 
-def _compensated_coupling(Bt, problem, lm, a, bb):
-    return compensated_coupling(Bt[lm, a], Bt[lm, bb])
+def _float32_coupling(Ba, Bb):
+    return torch.einsum("nic,njc->nij", Ba, Bb)
 
 
-def _placed_coupling(Bt, problem, lm, a, bb):
-    parts = placed_parts(Bt, problem.lm_obs // problem.pose_obs.shape[1], problem.lm_obs_mask)
-    return _six_products([x[lm, a] for x in parts], [x[lm, bb] for x in parts])
+# The ablations, as patches of ba: the port's former float32 assembly, and
+# the compensated products alone; each with the slot-pair plan.
+FLOAT32_COUPLING = {"_dense_coupling_plan": _slot_pair_plan,
+                    "_dense_assemble": _dense_assemble_with(_float32_coupling)}
+COMPENSATED_PRODUCTS = {"_dense_coupling_plan": _slot_pair_plan,
+                        "_dense_assemble": _dense_assemble_with(compensated_coupling)}
 
 
-# ba._dense_assemble with the compensated products alone, and with the
-# placement rounding too.
-_dense_assemble_compensated = _dense_assemble_with(_compensated_coupling)
-_dense_assemble_placed = _dense_assemble_with(_placed_coupling)
+def _patched(patch: dict | None):
+    """ba's functions replaced by `patch` (name -> replacement) while in use."""
+    stack = contextlib.ExitStack()
+    for name, fn in (patch or {}).items():
+        stack.enter_context(mock.patch.object(ba, name, fn))
+    return stack
 
 
-def _lm_run(problem, cam, gt_t, patch: tuple[str, object] | None = None):
-    """Dense LM at the benchmark's settings, with `ba.<patch[0]>` replaced
-    where a patch is given: (the problem where it stopped, {cost,
-    iterations, accepted, rejected (the 1-based iterations whose step was
-    refused), ate, cost_after_step1 (the cost history's second entry)})."""
+def _lm_run(problem, cam, gt_t, patch: dict | None = None):
+    """Dense LM at the benchmark's settings, with ba's functions replaced by
+    `patch` (name -> replacement) where one is given: (the problem where it
+    stopped, {cost, iterations, accepted, rejected (the 1-based iterations
+    whose step was refused), ate, cost_after_step1 (the cost history's
+    second entry)})."""
     solver = ba.BASolverConfig(max_iterations=ITERATIONS, schur_solver="dense", cg_iterations=CG_ITERATIONS)
-    with mock.patch.object(ba, *patch) if patch else contextlib.nullcontext():
+    with _patched(patch):
         opt, info = ba.optimize(problem, cam=cam, solver=solver)
     h = info["history"]
     return opt, dict(cost=info["cost"], iterations=info["iterations"], accepted=info["accepted"],
@@ -292,14 +260,14 @@ def _lm_run(problem, cam, gt_t, patch: tuple[str, object] | None = None):
                      ate=ate_rmse(opt.poses_t.double().cpu().numpy(), gt_t), cost_after_step1=h[1])
 
 
-def _lm_figures(problem, cam, gt_t, patch: tuple[str, object] | None = None) -> dict:
+def _lm_figures(problem, cam, gt_t, patch: dict | None = None) -> dict:
     """_lm_run's figures."""
     return _lm_run(problem, cam, gt_t, patch)[1]
 
 
-def _dense_lm(problem, cam, gt_t, patch: tuple[str, object]) -> dict:
-    """Dense LM at the benchmark's settings with `ba.<patch[0]>` replaced,
-    in float32 and float64: {dtype: _lm_figures}."""
+def _dense_lm(problem, cam, gt_t, patch: dict) -> dict:
+    """Dense LM at the benchmark's settings with ba patched by `patch`, in
+    float32 and float64: {dtype: _lm_figures}."""
     runs = {"float32": (problem, cam), "float64": to_float64(problem, cam)}
     return {dtype: _lm_figures(p, c, gt_t, patch) for dtype, (p, c) in runs.items()}
 
@@ -307,14 +275,14 @@ def _dense_lm(problem, cam, gt_t, patch: tuple[str, object]) -> dict:
 def ridge_trial(problem, cam, gt_t) -> dict:
     """Dense LM under each rule of RIDGES, in float32 and float64:
     {rule: {dtype: {cost, iterations, accepted, ate}}}."""
-    return {rule: _dense_lm(problem, cam, gt_t, ("_dense_core", _dense_core_with_ridge(ridge_of)))
+    return {rule: _dense_lm(problem, cam, gt_t, {"_dense_core": _dense_core_with_ridge(ridge_of)})
             for rule, ridge_of in RIDGES.items()}
 
 
 def floor_trial(problem, cam, gt_t) -> dict:
     """Dense LM under each landmark floor of FLOORS, in float32 and
     float64: {floor: {dtype: {cost, iterations, accepted, ate}}}."""
-    return {name: _dense_lm(problem, cam, gt_t, ("_schur_terms", _schur_terms_with_floor(floor)))
+    return {name: _dense_lm(problem, cam, gt_t, {"_schur_terms": _schur_terms_with_floor(floor)})
             for name, floor in FLOORS.items()}
 
 
@@ -326,47 +294,49 @@ def _follows_reference(run: dict) -> bool:
 
 
 def coupling_trial(problem, cam, gt_t) -> dict:
-    """Dense LM in float32 with the JAX package's compensated bf16 coupling
-    (`compensated`) beside the port's float32 coupling (`port_float32`) and
-    the JAX package's CPU figures (`reference_cpu`). `follows_reference`:
-    the emulated run rejects iterations 4 to 6, runs all ITERATIONS, and
-    ends within 1% of the reference's cost."""
-    out = dict(compensated=_lm_figures(problem, cam, gt_t, ("_dense_assemble", _dense_assemble_compensated)),
-               port_float32=_lm_figures(problem, cam, gt_t), reference_cpu=REFERENCE_CPU)
+    """Dense LM in float32 under the two ablations: the compensated bf16
+    products without the placement rounding (`compensated`) and the port's
+    former float32 coupling (`port_float32`), beside the JAX package's CPU
+    figures (`reference_cpu`). `follows_reference`: the compensated run
+    rejects iterations 4 to 6, runs all ITERATIONS, and ends within 1% of
+    the reference's cost."""
+    out = dict(compensated=_lm_figures(problem, cam, gt_t, COMPENSATED_PRODUCTS),
+               port_float32=_lm_figures(problem, cam, gt_t, FLOAT32_COUPLING), reference_cpu=REFERENCE_CPU)
     out["follows_reference"] = _follows_reference(out["compensated"])
     return out
 
 
 def placement_trial(problem, cam, gt_t) -> dict:
-    """Dense LM in float32 with the JAX package's placement rounding and
-    compensated products (`placed`) beside its CPU figures
-    (`reference_cpu`); `follows_reference` as coupling_trial's, and
+    """Dense LM with the solver as it is (the JAX package's placement
+    rounding and compensated products: `placed`) beside the reference's CPU
+    figures (`reference_cpu`); `follows_reference` as coupling_trial's, and
     `repeated_slots`: how many valid slots share a (landmark, pose) with an
     earlier slot."""
     mask = problem.lm_obs_mask
-    _, first = _slot_groups(problem.lm_obs // problem.pose_obs.shape[1], mask)
+    _, first = ba._slot_groups(problem.lm_obs // problem.pose_obs.shape[1], mask)
     repeated = int((mask & ~first).sum())
-    placed = _lm_figures(problem, cam, gt_t, ("_dense_assemble", _dense_assemble_placed))
+    placed = _lm_figures(problem, cam, gt_t)
     return dict(placed=placed, reference_cpu=REFERENCE_CPU, repeated_slots=repeated,
                 follows_reference=_follows_reference(placed))
 
 
 def schedule_trial(problem, cam, gt_t) -> dict:
-    """The port's float32 dense LM at the benchmark's settings run to its
-    stop, then one dense step from that state at each lambda of
-    SCHEDULE_LAMBDAS: {stop: _lm_run's figures, lambdas, cost_after_step
-    (one per lambda), accepted_from (the smallest lambda whose step lowers
-    the cost, or None)}."""
-    opt, stop = _lm_run(problem, cam, gt_t)
+    """The former float32 dense LM (FLOAT32_COUPLING) at the benchmark's
+    settings run to its stop, then one dense step of it from that state at
+    each lambda of SCHEDULE_LAMBDAS: {stop: _lm_run's figures, lambdas,
+    cost_after_step (one per lambda), accepted_from (the smallest lambda
+    whose step lowers the cost, or None)}."""
+    opt, stop = _lm_run(problem, cam, gt_t, FLOAT32_COUPLING)
     cfg = ba.BASolverConfig()
     hd, wt, wr = (ba._round_f32(x) for x in (cfg.huber_delta, cfg.odom_t_weight, cfg.odom_r_weight))
     pm = ba._build_pm_inputs(opt)
-    plan = ba._dense_coupling_plan(opt)
     lin = ba._linearize_pm(cam, opt, pm, hd, wt, wr, True)
     costs = []
-    for lam in SCHEDULE_LAMBDAS:
-        d_pose, d_lm, _ = ba._dense_core(pm, *lin, opt, ba._round_f32(lam), cfg.fix_first_pose, plan)
-        costs.append(float(ba.compute_cost(cam, ba._apply_step(opt, d_pose, d_lm), hd, wt, wr, True)))
+    with _patched(FLOAT32_COUPLING):
+        plan = ba._dense_coupling_plan(opt)
+        for lam in SCHEDULE_LAMBDAS:
+            d_pose, d_lm, _ = ba._dense_core(pm, *lin, opt, ba._round_f32(lam), cfg.fix_first_pose, plan)
+            costs.append(float(ba.compute_cost(cam, ba._apply_step(opt, d_pose, d_lm), hd, wt, wr, True)))
     lower = [lam for lam, c in zip(SCHEDULE_LAMBDAS, costs) if np.isfinite(c) and c < stop["cost"]]
     return dict(stop=stop, lambdas=list(SCHEDULE_LAMBDAS), cost_after_step=costs,
                 accepted_from=lower[0] if lower else None)

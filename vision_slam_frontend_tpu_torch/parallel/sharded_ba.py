@@ -181,13 +181,15 @@ def _lm_shard_inputs(data: dict, mesh, device) -> dict:
 
 def _lm_sharded_plan(d: dict, P: int):
     """The coupling's static pair plan of the local landmark block (one host
-    sync, once per solve): every pair (a, b) of valid observation slots of
-    each local landmark l, its target block pose(a) * P + pose(b), and the
-    shard of l."""
-    mask = d["lm_msk"]
-    lm, a, b = (mask[:, :, None] & mask[:, None, :]).nonzero(as_tuple=True)
+    sync, once per solve): every pair of (landmark, pose) groups of each
+    local landmark, by the groups' first slots a, b (backend/ba._group_pairs),
+    its target block pose(a) * P + pose(b), the shard of l, and the groups'
+    placement. Returns (lm, a, b, target, shard, place)."""
+    from vision_slam_frontend_tpu_torch.backend.ba import _group_pairs
+
     pose_of = d["op"][d["lm_tbl"]]  # (Lb, Ml)
-    return lm, a, b, pose_of[lm, a] * P + pose_of[lm, b], d["lm_shard"][lm]
+    lm, a, b, place = _group_pairs(pose_of, d["lm_msk"])
+    return lm, a, b, pose_of[lm, a] * P + pose_of[lm, b], d["lm_shard"][lm], place
 
 
 def lm_sharded_dense_step(cam, problem: BAProblem, d: dict, plan, mesh, free, lam, hd, wt, wr, huber_on: bool):
@@ -205,6 +207,7 @@ def lm_sharded_dense_step(cam, problem: BAProblem, d: dict, plan, mesh, free, la
     steps are gathered. Returns (d_pose (P, 6), d_lm (L, 3), |residual|)."""
     from vision_slam_frontend_tpu_torch.backend.ba import (
         _chol3,
+        _coupling_blocks,
         _dense_solve_core,
         _eye,
         _huber,
@@ -247,11 +250,11 @@ def lm_sharded_dense_step(cam, problem: BAProblem, d: dict, plan, mesh, free, la
     b = (-sums[:, :6] + g_odom - sums[:, 6:12]) * free[:, None]
     U_diag = sums[:, 12:].view(P, 6, 6) + U_odom + lam * _eye(6, V)[None]
 
-    # --- Coupling partial: S -= B B^T over each local landmark's pairs.
+    # --- Coupling partial: S -= B B^T over each local landmark's group pairs.
     W = torch.einsum("nij,nik->njk", Jp, Jl)  # (N, 6, 3)
     Bt = torch.einsum("lmij,lcj->lmic", W.reshape(-1, 18)[tbl].reshape(*tbl.shape, 6, 3) * lmm[..., None], Ginv)
-    lm, a, bb, target, shard = plan
-    C = torch.einsum("nic,njc->nij", Bt[lm, a], Bt[lm, bb]).reshape(-1, 36)
+    lm, a, bb, target, shard, place = plan
+    C = _coupling_blocks(Bt, lm, a, bb, place).reshape(-1, 36)
     Sc = mesh.all_reduce(mesh.segsum(C, target, P * P, shard))
     S4 = _s_init(U_diag, Ji, Jj, problem.odom_i, problem.odom_j) - Sc.view(P, P, 6, 6)
     d_pose, rr = _dense_solve_core(S4, b, free)
