@@ -2,8 +2,8 @@
 the main paths' shapes, the keyframe step and Frontend on the card against
 the CPU, for every descriptor family and the ORB pyramid, the two-step API
 routes and nms=False, the L2 kNN,
-frontend checkpoints and validate mode, and the BA backend (a failed Cholesky, bit-equal reruns, the card against the CPU, the
-CUDA default refused without a card).
+frontend checkpoints and validate mode, the BA backend (a failed Cholesky, bit-equal reruns, the card against the CPU,
+the CUDA default refused without a card), and the span recorder (no sync, no launch).
 
 The tests marked `cuda` need the card and skip where there is none; the BA
 tests' CPU cases and the refusal test run anywhere. The file imports no JAX
@@ -299,6 +299,53 @@ def test_frontend_on_the_card_launches_each_kernel_twice_per_keyframe(cuda, fram
     assert fe.get_slam_problem().summary() == ref.get_slam_problem().summary()
     for a, b in zip(fe.node_track_ids, ref.node_track_ids):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_the_span_recorder_adds_no_sync_and_no_launch(cuda, frames, monkeypatch):
+    """An ORB Frontend run on the card under sync-debug "warn" gives as many
+    synchronisation warnings with the span recorder on as with it off (and
+    as with no profiler at all), and the profiler counts as many
+    kernel-launch calls either way; off, nothing is recorded."""
+    import types
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vision_slam_frontend_tpu_torch.utils import profiling
+
+    def run():
+        fe = Frontend(_config(), device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for f in frames:
+                    fe.observe_odometry(f.odom_translation, f.odom_rotation, f.timestamp)
+                    fe.observe_image(f.left, f.right, f.timestamp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fe.get_num_poses() == NUM_FRAMES - 1
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    run()  # warm: kernel builds, library handles
+    plain_syncs = run()
+    counts = {}
+    for record in (False, True):
+        if not record:  # the profiler records, the recorder does not
+            monkeypatch.setattr(profiling, "_autograd_profiler", types.SimpleNamespace(_is_profiler_enabled=False))
+        profiling.clear_spans()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            syncs = run()
+            torch.cuda.synchronize()
+        monkeypatch.undo()
+        launches = sum(e.count for e in prof.key_averages() if "Launch" in e.key)
+        counts[record] = (syncs, launches, len(profiling.recorded_spans()))
+    profiling.clear_spans()
+    assert counts[False][:2] == counts[True][:2] and counts[True][0] == plain_syncs
+    assert counts[True][1] > 1000 * (NUM_FRAMES - 1)
+    assert counts[False][2] == 0 and counts[True][2] >= 15 * (NUM_FRAMES - 1)
 
 
 @pytest.mark.cuda

@@ -218,3 +218,5 @@ def test_cli_profile_dir_writes_a_trace(cli_runs):
     trace = json.load(open(os.path.join(prof, files[0])))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names)
+    # The program's spans show in the trace under their names.
+    assert {"keyframe.step", "frontend.accumulate"} <= names

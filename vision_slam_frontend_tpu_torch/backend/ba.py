@@ -27,6 +27,7 @@ CUDA problem while `torch.backends.cuda.matmul.allow_tf32` is set.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 
 import numpy as np
@@ -44,6 +45,7 @@ from vision_slam_frontend_tpu_torch.backend.residuals import (
 )
 from vision_slam_frontend_tpu_torch.geometry.rotation import quat_normalize
 from vision_slam_frontend_tpu_torch.types.slam_types import BAProblem
+from vision_slam_frontend_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -420,10 +422,12 @@ def _solve_schur_pcg_posemajor_from_pm(
 ):
     """Pose-major Schur-PCG from the pose-major linearization. Returns
     (d_pose (P, 6), d_lm (L, 3), |CG residual|)."""
-    state, b, g_lm = _pm_build_from_pm(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first)
-    d_pose, rr = _run_pcg(b, lambda x: _pm_sapply(state, x), lambda x: _pm_mapply(state, x), cg_iters)
-    d_lm = _pm_backsub(state, g_lm, d_pose)
-    return d_pose, d_lm, torch.linalg.norm(rr)
+    with span("ba.assemble"):
+        state, b, g_lm = _pm_build_from_pm(pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first)
+    with span("ba.linear_solve"):
+        d_pose, rr = _run_pcg(b, lambda x: _pm_sapply(state, x), lambda x: _pm_mapply(state, x), cg_iters)
+        d_lm = _pm_backsub(state, g_lm, d_pose)
+        return d_pose, d_lm, torch.linalg.norm(rr)
 
 
 def _chol3(V):
@@ -619,12 +623,14 @@ def _dense_core(
     (_dense_assemble), solved with one Cholesky (_dense_solve_core; one per
     diagonal block of `block_poses` poses), then the landmarks'
     back-substitution. Returns (d_pose, d_lm, |residual|)."""
-    S4, b, free, V_inv, g_lm = _dense_assemble(
-        pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan, block_poses,
-    )
-    d_pose, rrn = _dense_solve_core(S4, b, free)
-    lm_mask = problem.lm_obs_mask.to(g_lm.dtype)[..., None]
-    return d_pose, _backsub(Jp_pm, Jl_pm, problem.lm_obs, lm_mask, V_inv, g_lm, d_pose), rrn
+    with span("ba.assemble"):
+        S4, b, free, V_inv, g_lm = _dense_assemble(
+            pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lm_damping, fix_first, plan, block_poses,
+        )
+    with span("ba.linear_solve"):
+        d_pose, rrn = _dense_solve_core(S4, b, free)
+        lm_mask = problem.lm_obs_mask.to(g_lm.dtype)[..., None]
+        return d_pose, _backsub(Jp_pm, Jl_pm, problem.lm_obs, lm_mask, V_inv, g_lm, d_pose), rrn
 
 
 def _dense_solve_core(S4, b, free):
@@ -681,51 +687,53 @@ def _solve_schur_pcg_scatter(
     def reduce_lm(data):
         return _segsum(data, ol, L)
 
-    # --- Landmark blocks and their exact elimination.
-    V = reduce_lm(torch.einsum("nij,nik->njk", Jl, Jl)) + lm_damping * _eye(3, Jl)[None]
-    V_inv = _sym3_inv(V)
+    with span("ba.assemble"):
+        # --- Landmark blocks and their exact elimination.
+        V = reduce_lm(torch.einsum("nij,nik->njk", Jl, Jl)) + lm_damping * _eye(3, Jl)[None]
+        V_inv = _sym3_inv(V)
 
-    # --- Gradients (RHS of the normal equations): g = -J^T r.
-    g_odom, U_odom = _odom_terms(problem, Ji, Jj, ro, P)
-    g_pose = -reduce_pose(torch.einsum("nij,ni->nj", Jp, r)) + g_odom
-    g_lm = -reduce_lm(torch.einsum("nij,ni->nj", Jl, r))
+        # --- Gradients (RHS of the normal equations): g = -J^T r.
+        g_odom, U_odom = _odom_terms(problem, Ji, Jj, ro, P)
+        g_pose = -reduce_pose(torch.einsum("nij,ni->nj", Jp, r)) + g_odom
+        g_lm = -reduce_lm(torch.einsum("nij,ni->nj", Jl, r))
 
-    free = _free_mask(problem, fix_first, r.dtype)
+        free = _free_mask(problem, fix_first, r.dtype)
 
-    def gauge(x):
-        return x * free[:, None]
+        def gauge(x):
+            return x * free[:, None]
 
-    # --- Reduced RHS: b = g_pose - W V^{-1} g_lm.
-    s = torch.einsum("ljk,lk->lj", V_inv, g_lm)
-    Jls = torch.einsum("nij,nj->ni", Jl, s[ol])
-    b = gauge(g_pose - reduce_pose(torch.einsum("nij,ni->nj", Jp, Jls)))
+        # --- Reduced RHS: b = g_pose - W V^{-1} g_lm.
+        s = torch.einsum("ljk,lk->lj", V_inv, g_lm)
+        Jls = torch.einsum("nij,nj->ni", Jl, s[ol])
+        b = gauge(g_pose - reduce_pose(torch.einsum("nij,ni->nj", Jp, Jls)))
 
-    # --- Block-Jacobi preconditioner from the U diagonal.
-    U_diag = reduce_pose(torch.einsum("nij,nik->njk", Jp, Jp)) + U_odom
-    U_diag = U_diag + lm_damping * _eye(6, U_diag)[None]
-    M_inv = torch.linalg.inv_ex(U_diag).inverse
+        # --- Block-Jacobi preconditioner from the U diagonal.
+        U_diag = reduce_pose(torch.einsum("nij,nik->njk", Jp, Jp)) + U_odom
+        U_diag = U_diag + lm_damping * _eye(6, U_diag)[None]
+        M_inv = torch.linalg.inv_ex(U_diag).inverse
 
-    def S_apply(x):
-        x = gauge(x)
-        y = torch.einsum("nij,nj->ni", Jp, x[op])
-        u = reduce_pose(torch.einsum("nij,ni->nj", Jp, y))
-        u = u + _odom_apply(Ji, Jj, problem.odom_i, problem.odom_j, x, P)
-        u = u + lm_damping * x
-        t = reduce_lm(torch.einsum("nij,ni->nj", Jl, y))
-        st = torch.einsum("ljk,lk->lj", V_inv, t)
-        Jlst = torch.einsum("nij,nj->ni", Jl, st[ol])
-        return gauge(u - reduce_pose(torch.einsum("nij,ni->nj", Jp, Jlst)))
+        def S_apply(x):
+            x = gauge(x)
+            y = torch.einsum("nij,nj->ni", Jp, x[op])
+            u = reduce_pose(torch.einsum("nij,ni->nj", Jp, y))
+            u = u + _odom_apply(Ji, Jj, problem.odom_i, problem.odom_j, x, P)
+            u = u + lm_damping * x
+            t = reduce_lm(torch.einsum("nij,ni->nj", Jl, y))
+            st = torch.einsum("ljk,lk->lj", V_inv, t)
+            Jlst = torch.einsum("nij,nj->ni", Jl, st[ol])
+            return gauge(u - reduce_pose(torch.einsum("nij,ni->nj", Jp, Jlst)))
 
-    def M_apply(x):
-        return gauge(torch.einsum("pij,pj->pi", M_inv, x))
+        def M_apply(x):
+            return gauge(torch.einsum("pij,pj->pi", M_inv, x))
 
-    d_pose, rr = _run_pcg(b, S_apply, M_apply, cg_iters)
+    with span("ba.linear_solve"):
+        d_pose, rr = _run_pcg(b, S_apply, M_apply, cg_iters)
 
-    # --- Landmark back-substitution: d_lm = V^{-1}(g_lm - W^T d_pose).
-    y = torch.einsum("nij,nj->ni", Jp, d_pose[op])
-    wtd = reduce_lm(torch.einsum("nij,ni->nj", Jl, y))
-    d_lm = torch.einsum("ljk,lk->lj", V_inv, g_lm - wtd)
-    return d_pose, d_lm, torch.linalg.norm(rr)
+        # --- Landmark back-substitution: d_lm = V^{-1}(g_lm - W^T d_pose).
+        y = torch.einsum("nij,nj->ni", Jp, d_pose[op])
+        wtd = reduce_lm(torch.einsum("nij,ni->nj", Jl, y))
+        d_lm = torch.einsum("ljk,lk->lj", V_inv, g_lm - wtd)
+        return d_pose, d_lm, torch.linalg.norm(rr)
 
 
 def _solve_schur_pcg_sharded(
@@ -752,41 +760,44 @@ def _solve_schur_pcg_sharded(
     def reduce_lm(data):
         return group.all_reduce(group.segsum(data, ol, L))
 
-    lm_part = group.segsum(
-        torch.cat([torch.einsum("nij,nik->njk", Jl, Jl).reshape(-1, 9), torch.einsum("nij,ni->nj", Jl, r)], 1), ol, L,
-    )
-    pose_part = group.segsum(torch.einsum("nij,nik->njk", Jp, Jp).reshape(-1, 36), op, P)
-    packed = group.all_reduce(torch.cat([lm_part.flatten(-2), pose_part.flatten(-2)], -1))
-    lm_sums = packed[: 12 * L].view(L, 12)
-    V_inv = _sym3_inv(lm_sums[:, :9].reshape(L, 3, 3) + lm_damping * _eye(3, Jl)[None])
-    g_lm = -lm_sums[:, 9:]
-    g_odom, U_odom = _odom_terms(problem, Ji, Jj, ro, P)
-    U_diag = packed[12 * L:].view(P, 6, 6) + U_odom + lm_damping * _eye(6, Jp)[None]
-    free = _free_mask(problem, fix_first, r.dtype)
+    with span("ba.assemble"):
+        lm_part = group.segsum(
+            torch.cat([torch.einsum("nij,nik->njk", Jl, Jl).reshape(-1, 9), torch.einsum("nij,ni->nj", Jl, r)], 1),
+            ol, L,
+        )
+        pose_part = group.segsum(torch.einsum("nij,nik->njk", Jp, Jp).reshape(-1, 36), op, P)
+        packed = group.all_reduce(torch.cat([lm_part.flatten(-2), pose_part.flatten(-2)], -1))
+        lm_sums = packed[: 12 * L].view(L, 12)
+        V_inv = _sym3_inv(lm_sums[:, :9].reshape(L, 3, 3) + lm_damping * _eye(3, Jl)[None])
+        g_lm = -lm_sums[:, 9:]
+        g_odom, U_odom = _odom_terms(problem, Ji, Jj, ro, P)
+        U_diag = packed[12 * L:].view(P, 6, 6) + U_odom + lm_damping * _eye(6, Jp)[None]
+        free = _free_mask(problem, fix_first, r.dtype)
 
-    def gauge(x):
-        return x * free[:, None]
+        def gauge(x):
+            return x * free[:, None]
 
-    # b = g_pose - W V^{-1} g_lm = g_odom - sum_n Jp^T (r + Jl s).
-    Jls = torch.einsum("nij,nj->ni", Jl, torch.einsum("ljk,lk->lj", V_inv, g_lm)[ol])
-    b = gauge(g_odom - reduce_pose(torch.einsum("nij,ni->nj", Jp, r + Jls)))
-    M_inv = torch.linalg.inv_ex(U_diag).inverse
+        # b = g_pose - W V^{-1} g_lm = g_odom - sum_n Jp^T (r + Jl s).
+        Jls = torch.einsum("nij,nj->ni", Jl, torch.einsum("ljk,lk->lj", V_inv, g_lm)[ol])
+        b = gauge(g_odom - reduce_pose(torch.einsum("nij,ni->nj", Jp, r + Jls)))
+        M_inv = torch.linalg.inv_ex(U_diag).inverse
 
-    def S_apply(x):
-        x = gauge(x)
-        y = torch.einsum("nij,nj->ni", Jp, x[op])
-        st = torch.einsum("ljk,lk->lj", V_inv, reduce_lm(torch.einsum("nij,ni->nj", Jl, y)))
-        z = y - torch.einsum("nij,nj->ni", Jl, st[ol])  # (U - W V^{-1} W^T) x per observation
-        u = reduce_pose(torch.einsum("nij,ni->nj", Jp, z))
-        return gauge(u + _odom_apply(Ji, Jj, problem.odom_i, problem.odom_j, x, P) + lm_damping * x)
+        def S_apply(x):
+            x = gauge(x)
+            y = torch.einsum("nij,nj->ni", Jp, x[op])
+            st = torch.einsum("ljk,lk->lj", V_inv, reduce_lm(torch.einsum("nij,ni->nj", Jl, y)))
+            z = y - torch.einsum("nij,nj->ni", Jl, st[ol])  # (U - W V^{-1} W^T) x per observation
+            u = reduce_pose(torch.einsum("nij,ni->nj", Jp, z))
+            return gauge(u + _odom_apply(Ji, Jj, problem.odom_i, problem.odom_j, x, P) + lm_damping * x)
 
-    def M_apply(x):
-        return gauge(torch.einsum("pij,pj->pi", M_inv, x))
+        def M_apply(x):
+            return gauge(torch.einsum("pij,pj->pi", M_inv, x))
 
-    d_pose, rr = _run_pcg(b, S_apply, M_apply, cg_iters)
-    y = torch.einsum("nij,nj->ni", Jp, d_pose[op])
-    d_lm = torch.einsum("ljk,lk->lj", V_inv, g_lm - reduce_lm(torch.einsum("nij,ni->nj", Jl, y)))
-    return d_pose, d_lm, torch.linalg.norm(rr)
+    with span("ba.linear_solve"):
+        d_pose, rr = _run_pcg(b, S_apply, M_apply, cg_iters)
+        y = torch.einsum("nij,nj->ni", Jp, d_pose[op])
+        d_lm = torch.einsum("ljk,lk->lj", V_inv, g_lm - reduce_lm(torch.einsum("nij,ni->nj", Jl, y)))
+        return d_pose, d_lm, torch.linalg.norm(rr)
 
 
 def sharded_cost(cam, problem: BAProblem, huber_delta, odom_t_weight, odom_r_weight, cfg_huber_enabled: bool, group):
@@ -889,6 +900,7 @@ def optimize(
     cam = cam.to(device)
 
     rounds = 1 + (solver.trim_rounds if solver.trim_threshold > 0 else 0)
+    iteration_ids = _iteration_ids()
     total_info = None
     n_trimmed_total = 0
     resume_state = None
@@ -924,6 +936,7 @@ def optimize(
         problem, info = _optimize_round(
             problem, solver, cam, verbose,
             resume_state=rs, ckpt_cb=ckpt_cb, checkpoint_every=checkpoint_every, group=group,
+            iteration_ids=iteration_ids,
         )
         if total_info is None:
             total_info = info
@@ -972,6 +985,16 @@ def _solver_form(problem: BAProblem, solver: BASolverConfig) -> str:
     return "pcg"
 
 
+_SOLVES = itertools.count()
+
+
+def _iteration_ids():
+    """The (solve, iteration) request ids of one solve's LM iterations,
+    numbered across its trimming rounds."""
+    solve = next(_SOLVES)
+    return ((solve, k) for k in itertools.count())
+
+
 def _optimize_round(
     problem: BAProblem,
     solver: BASolverConfig,
@@ -981,7 +1004,14 @@ def _optimize_round(
     ckpt_cb=None,
     checkpoint_every: int = 5,
     group=None,
+    *,
+    iteration_ids,
 ):
+    """LM iterations to convergence at one trimming round. Each iteration is
+    a `ba.iteration` span whose request is the next of `iteration_ids`
+    (the solve's _iteration_ids()), with its stages as children:
+    ba.linearize, ba.assemble, ba.linear_solve, ba.step (the candidate and
+    its cost, enqueued) and ba.sync (the cost's fetch)."""
     huber_on = solver.huber_delta > 0
     hd = _round_f32(solver.huber_delta)
     wt = _round_f32(solver.odom_t_weight)
@@ -1015,61 +1045,67 @@ def _optimize_round(
         pm = _build_pm_inputs(problem)
         plan = _dense_coupling_plan(problem) if form == "dense" else None
     for it in range(start_iter, solver.max_iterations):
-        lam32 = _round_f32(lam)
-        if form == "pcg_sharded":
-            d_pose, d_lm, cg_res = _solve_schur_pcg_sharded(
-                *_linearize(cam, problem, hd, wt, wr, huber_on), problem, lam32, solver.cg_iterations,
-                solver.fix_first_pose, group,
-            )
-        elif form == "pcg_scatter":
-            r, Jp, Jl, ro, Ji, Jj = _linearize(cam, problem, hd, wt, wr, huber_on)
-            d_pose, d_lm, cg_res = _solve_schur_pcg_scatter(
-                r, Jp, Jl, ro, Ji, Jj, problem, lam32, solver.cg_iterations, solver.fix_first_pose,
-            )
-        else:
-            r_pm, Jp_pm, Jl_pm, ro, Ji, Jj = _linearize_pm(cam, problem, pm, hd, wt, wr, huber_on)
-            if form == "dense":
-                d_pose, d_lm, cg_res = _dense_core(
-                    pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lam32, solver.fix_first_pose, plan,
-                )
+        with span("ba.iteration", next(iteration_ids)):
+            lam32 = _round_f32(lam)
+            if form in ("pcg_sharded", "pcg_scatter"):
+                with span("ba.linearize"):
+                    r, Jp, Jl, ro, Ji, Jj = _linearize(cam, problem, hd, wt, wr, huber_on)
+                if form == "pcg_sharded":
+                    d_pose, d_lm, cg_res = _solve_schur_pcg_sharded(
+                        r, Jp, Jl, ro, Ji, Jj, problem, lam32, solver.cg_iterations, solver.fix_first_pose, group,
+                    )
+                else:
+                    d_pose, d_lm, cg_res = _solve_schur_pcg_scatter(
+                        r, Jp, Jl, ro, Ji, Jj, problem, lam32, solver.cg_iterations, solver.fix_first_pose,
+                    )
             else:
-                d_pose, d_lm, cg_res = _solve_schur_pcg_posemajor_from_pm(
-                    pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lam32, solver.cg_iterations,
-                    solver.fix_first_pose,
-                )
-        if solver.validate:
-            from vision_slam_frontend_tpu_torch.utils.checks import check_ba_step
+                with span("ba.linearize"):
+                    r_pm, Jp_pm, Jl_pm, ro, Ji, Jj = _linearize_pm(cam, problem, pm, hd, wt, wr, huber_on)
+                if form == "dense":
+                    d_pose, d_lm, cg_res = _dense_core(
+                        pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lam32, solver.fix_first_pose, plan,
+                    )
+                else:
+                    d_pose, d_lm, cg_res = _solve_schur_pcg_posemajor_from_pm(
+                        pm, r_pm, Jp_pm, Jl_pm, ro, Ji, Jj, problem, lam32, solver.cg_iterations,
+                        solver.fix_first_pose,
+                    )
+            if solver.validate:
+                from vision_slam_frontend_tpu_torch.utils.checks import check_ba_step
 
-            check_ba_step(it, d_pose, d_lm)
-        candidate = _apply_step(problem, d_pose, d_lm)
-        new_cost = float(cost_of(candidate))  # the iteration's one sync
-        if verbose:
-            print(
-                f"[BA] iter {it}: cost {cost:.4f} -> {new_cost:.4f} "
-                f"(lambda={lam:.2e}, |cg_res|={float(cg_res):.2e})"
-            )
-        if np.isfinite(new_cost) and new_cost < cost:
-            rel = (cost - new_cost) / max(cost, 1e-12)
-            problem = candidate
-            cost = new_cost
-            lam = max(lam * solver.lambda_down, 1e-9)
-            accepted += 1
-            rejected_streak = 0
-            history.append(cost)
-            stop = rel < 1e-6
-        else:
-            # Non-finite candidate = the damped system went numerically
-            # indefinite (a failed Cholesky gives NaN); escalate lambda much
-            # faster than a plain cost rejection.
-            up = solver.lambda_up if np.isfinite(new_cost) else solver.lambda_up**3
-            lam = min(lam * up, 1e6)
-            rejected_streak += 1
-            history.append(cost)
-            # Plateau: repeated rejections after an acceptance mean the
-            # attainable minimum; before the first acceptance keep escalating.
-            stop = lam >= 1e6 or (rejected_streak >= 4 and accepted > 0)
-        if ckpt_cb and checkpoint_every > 0 and (stop or (it + 1) % checkpoint_every == 0):
-            ckpt_cb(problem, {"iter": it + 1, "lambda": lam, "history": history, "accepted": accepted})
+                check_ba_step(it, d_pose, d_lm)
+            with span("ba.step"):
+                candidate = _apply_step(problem, d_pose, d_lm)
+                candidate_cost = cost_of(candidate)
+            with span("ba.sync"):
+                new_cost = float(candidate_cost)  # the iteration's one sync
+            if verbose:
+                print(
+                    f"[BA] iter {it}: cost {cost:.4f} -> {new_cost:.4f} "
+                    f"(lambda={lam:.2e}, |cg_res|={float(cg_res):.2e})"
+                )
+            if np.isfinite(new_cost) and new_cost < cost:
+                rel = (cost - new_cost) / max(cost, 1e-12)
+                problem = candidate
+                cost = new_cost
+                lam = max(lam * solver.lambda_down, 1e-9)
+                accepted += 1
+                rejected_streak = 0
+                history.append(cost)
+                stop = rel < 1e-6
+            else:
+                # Non-finite candidate = the damped system went numerically
+                # indefinite (a failed Cholesky gives NaN); escalate lambda much
+                # faster than a plain cost rejection.
+                up = solver.lambda_up if np.isfinite(new_cost) else solver.lambda_up**3
+                lam = min(lam * up, 1e6)
+                rejected_streak += 1
+                history.append(cost)
+                # Plateau: repeated rejections after an acceptance mean the
+                # attainable minimum; before the first acceptance keep escalating.
+                stop = lam >= 1e6 or (rejected_streak >= 4 and accepted > 0)
+            if ckpt_cb and checkpoint_every > 0 and (stop or (it + 1) % checkpoint_every == 0):
+                ckpt_cb(problem, {"iter": it + 1, "lambda": lam, "history": history, "accepted": accepted})
         if stop:
             break
     return problem, {

@@ -43,6 +43,7 @@ from vision_slam_frontend_tpu_torch.types.slam_types import (
     VisionFactor,
 )
 from vision_slam_frontend_tpu_torch.utils.device import resolve_device
+from vision_slam_frontend_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,7 +224,8 @@ def _apply(solve: _InFlight):
     """Wait for the solve's result and write its poses into the window's
     nodes. Returns (updated, info)."""
     if solve.event is not None:
-        solve.event.synchronize()
+        with span("local_ba.apply.wait"):
+            solve.event.synchronize()
     out = solve.host.numpy()
     P = solve.P
     new_t = out[: P * 3].reshape(P, 3)
@@ -266,7 +268,32 @@ class LocalBAState:
         solve, self._in_flight = self._in_flight, None
         if solve is None:
             return 0, None
-        return _apply(solve)
+        with span("local_ba.apply", solve.nodes[-1].node_idx):
+            return _apply(solve)
+
+
+def _host_loop_window(problem: SLAMProblem, config, start: int, fixed_overlap: int, solver: BASolverConfig,
+                      device):
+    """The window from node `start` solved by the host-loop optimize(): the
+    full BASolverConfig surface (multi-round trimming, validation,
+    checkpointing) at the host loop's sync cost. Writes the refined poses
+    into `problem`; returns (updated, info), or None when the window has no
+    vision factors."""
+    sub = slice_problem(problem, start)
+    if len(sub.vision_factors) == 0:
+        return None
+    device = resolve_device(device)
+    m = len(sub.nodes)
+    k0 = min(fixed_overlap, m)
+    ba = build_ba_problem(sub, left_cam_to_robot=config.left_cam_to_robot, device=device)
+    fixed = torch.arange(ba.num_poses, device=device) < k0
+    opt, info = optimize(ba.replace(pose_fixed=fixed), config=config, solver=solver)
+    new_t, new_q = opt.poses_t.cpu().numpy(), opt.poses_q.cpu().numpy()
+    for k in range(k0, m):
+        node = problem.nodes[start + k]
+        node.pose.loc = new_t[k].astype(np.float32)
+        node.pose.angle = new_q[k].astype(np.float32)
+    return m - k0, info
 
 
 def windowed_local_ba(
@@ -305,29 +332,24 @@ def windowed_local_ba(
     if n < fixed_overlap + 2:
         return flushed if pipeline else (0, None)
     start = max(0, n - window)
-    sub = slice_problem(problem, start)
-    if len(sub.vision_factors) == 0:
-        return flushed if pipeline else (0, None)
-    device = resolve_device(device)
-    m = len(sub.nodes)
-    k0 = min(fixed_overlap, m)
-
     if solver is not None:
-        # Host-loop path: the full BASolverConfig surface (multi-round
-        # trimming, validation, checkpointing) at the host loop's sync cost.
-        ba = build_ba_problem(sub, left_cam_to_robot=config.left_cam_to_robot, device=device)
-        fixed = torch.arange(ba.num_poses, device=device) < k0
-        opt, info = optimize(ba.replace(pose_fixed=fixed), config=config, solver=solver)
-        new_t, new_q = opt.poses_t.cpu().numpy(), opt.poses_q.cpu().numpy()
-        for k in range(k0, m):
-            node = problem.nodes[start + k]
-            node.pose.loc = new_t[k].astype(np.float32)
-            node.pose.angle = new_q[k].astype(np.float32)
-        return m - k0, info
+        out = _host_loop_window(problem, config, start, fixed_overlap, solver, device)
+        if out is None:
+            return flushed if pipeline else (0, None)
+        return out
 
-    prob = window_problem(sub, config, window, k0, device)
-    cam = (state or LocalBAState()).camera(config, device)
-    host, event = _fetch(_solve_window(cam, prob))
+    request = problem.nodes[-1].node_idx  # the keyframe this window's solve is dispatched at
+    with span("local_ba.build", request):
+        sub = slice_problem(problem, start)
+        if len(sub.vision_factors) == 0:
+            return flushed if pipeline else (0, None)
+        device = resolve_device(device)
+        m = len(sub.nodes)
+        k0 = min(fixed_overlap, m)
+        prob = window_problem(sub, config, window, k0, device)
+        cam = (state or LocalBAState()).camera(config, device)
+    with span("local_ba.dispatch", request):
+        host, event = _fetch(_solve_window(cam, prob))
     solve = _InFlight([problem.nodes[start + k] for k in range(m)], k0, prob.num_poses, host, event)
     if pipeline:
         state._in_flight = solve

@@ -70,7 +70,7 @@ import numpy as np
 
 from vision_slam_frontend_tpu_torch.backend.local_ba import LocalBAState, windowed_local_ba
 from vision_slam_frontend_tpu_torch.utils.device import resolve_device
-from vision_slam_frontend_tpu_torch.utils.profiling import start_trace, write_trace
+from vision_slam_frontend_tpu_torch.utils.profiling import span, start_trace, write_trace
 
 Event = Tuple[str, float, tuple]  # (kind, timestamp, payload)
 
@@ -143,7 +143,9 @@ def prefetch_events(events: Iterator[Event], depth: int = 16) -> Iterator[Event]
     """Decode ahead: run the event source (file reads, JPEG or PNG decode) on
     a producer thread feeding a bounded queue, so the host work of frame
     k + 1 overlaps frame k's step. The decoders and file reads release the
-    GIL. The images stay host arrays: Frontend uploads them.
+    GIL. The images stay host arrays: Frontend uploads them. Each event's
+    read and decode is an `input.decode` span on the producer thread, each
+    wait of the consumer on the queue an `input.wait` span.
 
     If the consumer stops early (SIGINT, --max_poses, close()), its finally
     sets `stop`; the producer's bounded put polls it, so the thread exits
@@ -164,7 +166,11 @@ def prefetch_events(events: Iterator[Event], depth: int = 16) -> Iterator[Event]
 
     def producer():
         try:
-            for item in events:
+            while True:
+                with span("input.decode"):
+                    item = next(events, done)
+                if item is done:
+                    break
                 if stop.is_set() or not put(item):
                     return
             put(done)
@@ -177,7 +183,8 @@ def prefetch_events(events: Iterator[Event], depth: int = 16) -> Iterator[Event]
     threading.Thread(target=producer, daemon=True, name="vsf-prefetch").start()
     try:
         while True:
-            item = q.get()
+            with span("input.wait"):
+                item = q.get()
             if item is done:
                 return
             if isinstance(item, BaseException):

@@ -15,6 +15,9 @@ handed to `debug_sink` (viz/live.DebugImageStreamer writes PNGs) when the
 keyframe is materialized, or buffered for `get_debug_data`.
 `save_checkpoint` / `load_checkpoint` write and read the JAX package's
 checkpoint npz, so a run checkpointed by either package resumes in the other.
+Each keyframe's observe (upload, step, fetch) and each flush (its wait and
+the accumulation) are spans (utils/profiling.span) whose request is the
+keyframe's frame id.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from vision_slam_frontend_tpu_torch.types.slam_types import (
 )
 from vision_slam_frontend_tpu_torch.utils import np_geom
 from vision_slam_frontend_tpu_torch.utils.checks import check_keyframe_result
+from vision_slam_frontend_tpu_torch.utils.profiling import span
 
 # KeyframeResult fields the host accumulator reads.
 _HOST_FIELDS = (
@@ -152,54 +156,59 @@ class Frontend:
         if not self._odom_check():
             return False
         fid = self._curr_frame_id
-        # Odometry-estimated world pose of this keyframe (feeds the guided gate).
-        q_init_inv = np_geom.quat_inverse(self._init_odom_q)
-        pose_t = np_geom.quat_rotate(q_init_inv, self._odom_t - self._init_odom_t)
-        pose_q = np_geom.quat_multiply(self._odom_q, q_init_inv)
-        pose = self._to_device(np.concatenate([pose_t, pose_q]).astype(np.float32))
+        with span("frontend.observe", fid):
+            with span("frontend.upload"):
+                # Odometry-estimated world pose of this keyframe (feeds the guided gate).
+                q_init_inv = np_geom.quat_inverse(self._init_odom_q)
+                pose_t = np_geom.quat_rotate(q_init_inv, self._odom_t - self._init_odom_t)
+                pose_q = np_geom.quat_multiply(self._odom_q, q_init_inv)
+                pose = self._to_device(np.concatenate([pose_t, pose_q]).astype(np.float32))
+                left, right = self._as_u8(left_image), self._as_u8(right_image)
 
-        self._state, result = keyframe_step(
-            self._params,
-            self._state,
-            self._as_u8(left_image),
-            self._as_u8(right_image),
-            fid,
-            capacity=self.config.max_features,
-            window=self.config.frame_life,
-            border=self.config.detect_border,
-            blur_sigma=self.config.blur_sigma,
-            num_levels=self.config.num_levels,
-            scale_factor=self.config.pyramid_scale,
-            descriptor_family=self.config.descriptor_family,
-            mutual_check=self.config.mutual_check,
-            curr_pose_t=pose[:3],
-            curr_pose_q=pose[3:],
-        )
-        ctx = {
-            "fid": fid,
-            "timestamp": self._odom_timestamp,
-            "odom_t": self._odom_t.copy(),
-            "odom_q": self._odom_q.copy(),
-            "prev_odom_t": self._prev_odom_t.copy(),
-            "prev_odom_q": self._prev_odom_q.copy(),
-            "image_shape": tuple(np.shape(left_image)[:2]),
-        }
-        if self.config.debug_images:
-            ctx["left_image"] = self._host_image(left_image)
-            ctx["right_image"] = self._host_image(right_image)
-        # Pipeline one deep: materialize keyframe k-1 while k computes.
-        self._flush_pending()
-        raw = self.config.validate or self.config.debug_images
-        fields = _VALIDATE_FIELDS if raw else _HOST_FIELDS
-        host = {f: getattr(result, f).to("cpu", non_blocking=True) for f in fields}
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        self._pending = (ctx, host, event)
-        if self.config.validate:
-            # Validation reports the error at the offending keyframe: synchronous.
+            with span("keyframe.step"):
+                self._state, result = keyframe_step(
+                    self._params,
+                    self._state,
+                    left,
+                    right,
+                    fid,
+                    capacity=self.config.max_features,
+                    window=self.config.frame_life,
+                    border=self.config.detect_border,
+                    blur_sigma=self.config.blur_sigma,
+                    num_levels=self.config.num_levels,
+                    scale_factor=self.config.pyramid_scale,
+                    descriptor_family=self.config.descriptor_family,
+                    mutual_check=self.config.mutual_check,
+                    curr_pose_t=pose[:3],
+                    curr_pose_q=pose[3:],
+                )
+            ctx = {
+                "fid": fid,
+                "timestamp": self._odom_timestamp,
+                "odom_t": self._odom_t.copy(),
+                "odom_q": self._odom_q.copy(),
+                "prev_odom_t": self._prev_odom_t.copy(),
+                "prev_odom_q": self._prev_odom_q.copy(),
+                "image_shape": tuple(np.shape(left_image)[:2]),
+            }
+            if self.config.debug_images:
+                ctx["left_image"] = self._host_image(left_image)
+                ctx["right_image"] = self._host_image(right_image)
+            # Pipeline one deep: materialize keyframe k-1 while k computes.
             self._flush_pending()
+            with span("frontend.fetch"):
+                raw = self.config.validate or self.config.debug_images
+                fields = _VALIDATE_FIELDS if raw else _HOST_FIELDS
+                host = {f: getattr(result, f).to("cpu", non_blocking=True) for f in fields}
+                event = None
+                if self.device.type == "cuda":
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(self.device))
+                self._pending = (ctx, host, event)
+            if self.config.validate:
+                # Validation reports the error at the offending keyframe: synchronous.
+                self._flush_pending()
         self._prev_odom_t = self._odom_t.copy()
         self._prev_odom_q = self._odom_q.copy()
         self._curr_frame_id += 1
@@ -222,14 +231,17 @@ class Frontend:
             return
         ctx, host, event = self._pending
         self._pending = None
-        if event is not None:
-            event.synchronize()
-        for key in ("left_image", "right_image"):
-            if isinstance(ctx.get(key), torch.Tensor):
-                ctx[key] = ctx[key].numpy()
-        fields = dict.fromkeys(f.name for f in dataclasses.fields(KeyframeResult))
-        fields.update({k: v.numpy() for k, v in host.items()})
-        self._materialize(ctx, KeyframeResult(**fields))
+        with span("frontend.flush", ctx["fid"]):
+            if event is not None:
+                with span("frontend.flush.wait"):
+                    event.synchronize()
+            for key in ("left_image", "right_image"):
+                if isinstance(ctx.get(key), torch.Tensor):
+                    ctx[key] = ctx[key].numpy()
+            fields = dict.fromkeys(f.name for f in dataclasses.fields(KeyframeResult))
+            fields.update({k: v.numpy() for k, v in host.items()})
+            with span("frontend.accumulate"):
+                self._materialize(ctx, KeyframeResult(**fields))
 
     def _materialize(self, ctx: dict, r: KeyframeResult) -> None:
         fid = ctx["fid"]

@@ -21,6 +21,7 @@ import torch
 from vision_slam_frontend_tpu_torch.ops.cuda_kernels import extract_patches as _extract_planes
 from vision_slam_frontend_tpu_torch.ops.fast import fast_detect
 from vision_slam_frontend_tpu_torch.ops.image import gaussian_blur, resize_linear
+from vision_slam_frontend_tpu_torch.utils.profiling import span
 
 PATCH_RADIUS = 15  # 31x31 patch, as in ORB
 NUM_BITS = 256
@@ -289,13 +290,16 @@ def extract_over_levels(describe, image: torch.Tensor, threshold, max_keypoints:
     """FAST detect (`nms` as fast_detect's) -> `describe(level image f32,
     keypoints, valid) -> descriptors` on each pyramid level
     (pyramid_levels); keypoints at level-0 scale, levels concatenated in
-    order."""
+    order. The pyramid, and each level's detect and describe, are spans."""
     per_level = []
-    for level_img, budget, scale in pyramid_levels(image, max(num_levels, 1), scale_factor, border,
-                                                   max_keypoints):
-        kps, scores, valid = fast_detect(level_img, threshold=threshold, max_keypoints=budget, border=border,
-                                        nms=nms)
-        desc = describe(level_img.to(torch.float32), kps, valid)
+    with span("extract.pyramid"):
+        levels = pyramid_levels(image, max(num_levels, 1), scale_factor, border, max_keypoints)
+    for level_img, budget, scale in levels:
+        with span("extract.detect"):
+            kps, scores, valid = fast_detect(level_img, threshold=threshold, max_keypoints=budget, border=border,
+                                            nms=nms)
+        with span("extract.describe"):
+            desc = describe(level_img.to(torch.float32), kps, valid)
         per_level.append((kps * scale if scale != 1.0 else kps, scores, desc, valid))
     if len(per_level) == 1:
         return per_level[0]

@@ -10,17 +10,127 @@ pays its own launches and syncs; the whole step is timed too. On CUDA the
 result also holds the step's enqueue time (`_fused_step_enqueue_ms`): the
 step is launch-bound, so the host time to enqueue it against the synced
 time is the reading that matters.
+
+The program's spans (`span`) are recorded here too, in the running program
+rather than stage by stage: while a torch.profiler records this process,
+each span keeps its name, parent, thread, request and host-clock interval
+(`recorded_spans`) and shows in the profiler's trace under its name;
+otherwise a span costs one flag read. `span_table` sums them for an
+operator; `write_trace` prints it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import os
+import threading
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+
+class SpanRecord(NamedTuple):
+    """One recorded span: `t0`, `t1` are time.perf_counter() seconds on the
+    host; `parent` is the enclosing span's `sid` on the same thread (None at
+    the top); `request` is the unit of work the span serves (a keyframe's
+    frame id, a BA solve's (solve, iteration), ...), inherited from the
+    enclosing span where not given."""
+
+    name: str
+    sid: int
+    parent: int | None
+    thread: int
+    request: object
+    t0: float
+    t1: float
+
+
+_RECORDED: list[SpanRecord] = []
+_SPAN_IDS = itertools.count(1)
+_OPEN = threading.local()  # .stack: this thread's open spans, innermost last
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "request", "sid", "parent", "t0", "annotation")
+
+    def __init__(self, name: str, request):
+        self.name = name
+        self.request = request
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        outer = stack[-1] if stack else None
+        self.parent = outer.sid if outer is not None else None
+        if self.request is None and outer is not None:
+            self.request = outer.request
+        self.sid = next(_SPAN_IDS)
+        stack.append(self)
+        self.annotation = torch.profiler.record_function(self.name)
+        self.annotation.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        self.annotation.__exit__(*exc)
+        _OPEN.stack.pop()
+        _RECORDED.append(SpanRecord(self.name, self.sid, self.parent, threading.get_ident(), self.request,
+                                    self.t0, t1))
+        return False
+
+
+def span(name: str, request=None):
+    """A context manager marking one stage of the program's host work.
+
+    While a torch.profiler records this process (torch's own flag: no knob
+    of the port's), the span appends a SpanRecord when it closes and enters
+    torch.profiler.record_function(name), so the profiler's trace shows it
+    too. Otherwise it is a shared no-op context: one flag read, no clock
+    read, no allocation.
+
+    A span never synchronises: its end is the host time at which the work
+    inside was enqueued, not the time the device finished it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, request)
+
+
+def recorded_spans() -> list[SpanRecord]:
+    """The spans recorded so far in this process, in the order they closed."""
+    return list(_RECORDED)
+
+
+def clear_spans() -> None:
+    _RECORDED.clear()
+
+
+def span_table(spans) -> str:
+    """Operator's table of recorded spans: per name the count, total ms and
+    self ms (a span's duration minus its children's), by total, largest
+    first."""
+    child_s: dict[int, float] = {}
+    for s in spans:
+        if s.parent is not None:
+            child_s[s.parent] = child_s.get(s.parent, 0.0) + (s.t1 - s.t0)
+    rows: dict[str, list] = {}
+    for s in spans:
+        row = rows.setdefault(s.name, [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += s.t1 - s.t0
+        row[2] += s.t1 - s.t0 - child_s.get(s.sid, 0.0)
+    width = max([len("span")] + [len(n) for n in rows])
+    lines = [f"{'span':<{width}} {'count':>7} {'total ms':>11} {'self ms':>11}"]
+    for name, (n, total, own) in sorted(rows.items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"{name:<{width}} {n:7d} {total * 1e3:11.3f} {own * 1e3:11.3f}")
+    return "\n".join(lines)
 
 
 def _best_of(dispatch: Callable[[], object], sync: Callable[[], None], iters: int,
@@ -171,7 +281,8 @@ def start_trace(device):
 
 def write_trace(prof, directory: str, name: str) -> str:
     """Stop `prof` (after the device's queued work) and write its Chrome
-    trace to `directory`/`name`; returns the path."""
+    trace to `directory`/`name`; then print the table of the spans recorded
+    meanwhile (span_table) and forget them. Returns the path."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
@@ -179,4 +290,8 @@ def write_trace(prof, directory: str, name: str) -> str:
     path = os.path.join(directory, name)
     prof.export_chrome_trace(path)
     print(f"Wrote profiler trace to {directory}")
+    spans = recorded_spans()
+    if spans:
+        print(span_table(spans))
+        clear_spans()
     return path
