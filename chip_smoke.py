@@ -25,7 +25,10 @@ Phases, one line each; any failure ends the run with a non-zero exit:
               AKAZE, the 3-level ORB pyramid and SIFT for 2 each (640x480,
               K=512, W=10): every int and bool field equal
   5. main     each path driven once with the launch counts set to 0 just
-              before and read just after: the port's CLI on synthetic:20
+              before and read just after (every phase counts kernels run,
+              ops/cuda_kernels.runs(): stream launches plus the kernels of
+              the Frontend's step-graph replays, so a Frontend keyframe
+              counts as many whether eager or replayed): the port's CLI on synthetic:20
               (ORB) and on synthetic:8 with --descriptor_family brisk, freak,
               akaze and sift (SIFT: B1 and B2, no Hamming kernel); the ORB
               pyramid through Frontend on 8 frames; the
@@ -899,7 +902,7 @@ def run_cli(ck, argv, dev, tmp, tag):
     ck.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
         rc = cli_main([*argv, "--output", gpu_out, "--device", str(dev)])
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check(rc == 0, f"CLI {argv} exit code {rc}")
     summary = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Saved SLAM problem")]
     check(len(summary) == 1, f"no summary line from the CLI {argv}")
@@ -925,7 +928,7 @@ def run_frontend(ck, config, frames, dev, tmp, tag):
             fe.observe_image(f.left, f.right, f.timestamp)
         problem = fe.get_slam_problem()
         if i == 0:
-            launches = dict(ck.LAUNCHES)
+            launches = ck.runs()
         paths.append(os.path.join(tmp, f"{tag}_{i}.npz"))
         save_problem(paths[-1], problem, config=config, node_track_ids=fe.node_track_ids)
         summaries.append(problem.summary())
@@ -965,7 +968,7 @@ def phase_main(ck, frames, window_inputs, dev, tmp):
     # The window-gather entry point (ops/kernel_variants), at the probe's shapes.
     ck.reset_launch_counts()
     b5 = kv.run_cases(*window_inputs)
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check_launches("kernel_variants", launches, ("patch_windows",),
                    absent=("fast_scores_nms", "extract_patches", "hamming_top2"))
     per_path["kernel_variants"] = launches
@@ -1523,7 +1526,7 @@ def phase_ba(ck, dev, npz: str, tmp, card: str):
     line, first_step = phase_ba_first_step(dev)
     say("7 ba", f"[{card}] " + line)
     torch.cuda.empty_cache()
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check_launches("BA", launches, (), absent=tuple(KERNELS))
     return {"scale": scale, "big": big, "first_step": first_step}, launches
 
@@ -1593,7 +1596,7 @@ def phase_lba_parity(ck, dev, tmp):
         rc, printed = run_cli_quiet([*argv, "--output", outs[where], "--device", device])
         check(rc == 0, f"CLI --local_ba --device {device}: exit code {rc}")
         if where == "card":
-            launches = dict(ck.LAUNCHES)
+            launches = ck.runs()
         solves[where] = local_ba_solves(printed)
     check_launches("local BA CLI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
                    absent=("patch_windows",))
@@ -1925,7 +1928,7 @@ def phase_golden(ck, dev, card: str) -> tuple[dict, dict]:
         failed += [f"{family}: {m}" for m in failures]
         say("9 golden", f"(a) [{card}] " + golden_line(family, r)
             + ("; every pin met" if not failures else "; MISSED: " + "; ".join(failures)))
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check(not failed, "golden loop pins missed: " + "; ".join(failed))
     check_launches("golden loop", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
                    absent=("patch_windows",))
@@ -1963,7 +1966,7 @@ def phase_checkpoint_cli(ck, dev, tmp) -> tuple[str, dict]:
     rc, _ = run("--output", out["resumed_cut"], "--resume", out["cut"] + ".ckpt.npz")
     check(rc == 0, f"--resume after the interrupt: exit code {rc}")
     cut = same_problem("--interrupt_after then --resume", out["resumed_cut"], out["full"])
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check_launches("checkpoint CLI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
                    absent=("patch_windows",))
     return (f"(b) CLI {CKPT_INPUT} on the card: --checkpoint_every {CKPT_EVERY} then --resume from its last "
@@ -1982,7 +1985,7 @@ def phase_validate(ck, dev, tmp) -> tuple[str, dict]:
                                "--device", str(dev)])
         check(rc == 0, f"CLI --validate {fam}: exit code {rc}")
         parts.append(f"{fam} {inp}: " + same_problem(f"--validate {fam}", out, os.path.join(tmp, f"{fam}_gpu.npz")))
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check_launches("validate CLI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
                    absent=("patch_windows",))
     return "(c) --validate on the card, every keyframe checked, none failed: " + "; ".join(parts) + \
@@ -2105,7 +2108,7 @@ def phase_bag_golden(ck, dev, tmp, route: str, card: str) -> tuple[dict, dict, s
         check(rc == 0, f"CLI on the degraded bag, {family}: exit code {rc}")
         check(f"[decode] {route}" in printed, f"CLI {family} did not decode with {route}: {printed[:300]}")
         if family == "orb":
-            launches = dict(ck.LAUNCHES)
+            launches = ck.runs()
             check_launches("degraded bag, orb", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
                            absent=("patch_windows",))
         r = readings[family] = bag_readings(out, gt, config, dev)
@@ -2277,7 +2280,7 @@ def phase_datasets(ck, dev, tmp, golden_bag: str) -> tuple[str, dict]:
                                "--device", str(device)])
         check(rc == 0, f"CLI on KITTI ({d}): exit code {rc}")
         if d == "card":
-            launches = dict(ck.LAUNCHES)
+            launches = ck.runs()
             check_launches("KITTI", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"))
     z = np.load(paths["card"]["npz"])
     check(len(z["nodes_id"]) == DATASET_FRAMES - 1 and np.bincount(z["feat_node"]).min() > 20,
@@ -2379,7 +2382,7 @@ def phase_conditions(ck, dev, card: str) -> tuple[dict, dict]:
                          + (f", ATE {r['ate_odom']:.3f} -> {r['ate_ba']:.3f}" if "ate_ba" in r else "")
                          + (" ok" if not failures else " FAILED: " + "; ".join(failures)) + f" ({r['seconds']:.1f} s)")
         say("10 inputs", f"(e) [{card}] {name} (rendered and degraded in {render_s:.1f} s): " + "; ".join(cells))
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check(not failed, "survival matrix failed: " + "; ".join(failed))
     check_launches("survival matrix", launches, ("fast_scores_nms", "extract_patches", "hamming_top2"),
                    absent=("patch_windows",))
@@ -2807,7 +2810,7 @@ def phase_parallel(ck, dev, npz: str, tmp, card: str, phase7: dict):
     for line in lines:
         say("11 parallel", f"[{card}] " + line)
     say("11 parallel", phase_segments_cli(npz, dev, tmp))
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check_launches("parallel", launches, (), absent=tuple(KERNELS))
     seconds = time.perf_counter() - t0
     say("11 parallel", f"phase 11 took {seconds:.1f} s")
@@ -2925,7 +2928,7 @@ def phase_tools_cli(ck, dev, tmp, frames, orb_npz: str, orb_launches: dict) -> t
                                             *TOOLS_CLI_FLAGS])
         check(rc == 0, f"the CLI with {TOOLS_CLI_FLAGS} on {device}: exit code {rc}")
         if where == "card":
-            launches, card_s = dict(ck.LAUNCHES), time.perf_counter() - t0
+            launches, card_s = ck.runs(), time.perf_counter() - t0
     for name in ("fast_scores_nms", "extract_patches", "hamming_top2", "patch_windows"):
         check(launches[name] == orb_launches[name],
               f"{name}: {launches[name]} launches with {TOOLS_CLI_FLAGS}, {orb_launches[name]} in phase 5's run")
@@ -3029,7 +3032,7 @@ def phase_tools_profile(ck, dev, tmp, card: str) -> tuple[dict, str, dict]:
     ck.reset_launch_counts()
     rc, printed = run_cli_quiet(["--max_features", "512", "--frame_life", "10", "--trace_dir", trace_dir,
                                  "--device", str(dev)], main=profile_stages.main)
-    launches = dict(ck.LAUNCHES)
+    launches = ck.runs()
     check(rc == 0, f"profile_stages exit code {rc}")
     rows = stage_table(printed)
     for s in STAGES:
@@ -3261,7 +3264,7 @@ def phase_api(ck, dev, frame, card: str) -> tuple[dict, str, dict]:
         ck.reset_launch_counts()
         out = call(dev)
         torch.cuda.synchronize()
-        launches = dict(ck.LAUNCHES)
+        launches = ck.runs()
         for k, v in launches.items():
             total[k] += v
         want = {k: API_LAUNCHES[name].get(k, 0) for k in launches}

@@ -283,6 +283,9 @@ def test_keyframe_step_cuda_matches_cpu(cuda, frames, overrides):
 
 @pytest.mark.cuda
 def test_frontend_on_the_card_launches_each_kernel_twice_per_keyframe(cuda, frames):
+    """Each kernel runs twice a keyframe: launched on the stream by the
+    first (eager) keyframe, from the step's CUDA graph on every later one,
+    counted from the graph's recorded kernels at each replay."""
     fe = Frontend(_config(), device=cuda)
     ck.reset_launch_counts()
     for f in frames:
@@ -290,8 +293,9 @@ def test_frontend_on_the_card_launches_each_kernel_twice_per_keyframe(cuda, fram
         fe.observe_image(f.left, f.right, f.timestamp)
     n = fe.get_num_poses()
     assert n == NUM_FRAMES - 1
-    assert ck.LAUNCHES == {"fast_scores_nms": 2 * n, "extract_patches": 2 * n, "hamming_top2": 2 * n,
-                           "patch_windows": 0}
+    assert ck.runs() == {"fast_scores_nms": 2 * n, "extract_patches": 2 * n, "hamming_top2": 2 * n,
+                         "patch_windows": 0}
+    assert ck.LAUNCHES["fast_scores_nms"] == 2 and ck.REPLAYED["fast_scores_nms"] == 2 * (n - 1)
     ref = Frontend(_config(), device=CPU)
     for f in frames:
         ref.observe_odometry(f.odom_translation, f.odom_rotation, f.timestamp)
@@ -306,7 +310,9 @@ def test_the_span_recorder_adds_no_sync_and_no_launch(cuda, frames, monkeypatch)
     """An ORB Frontend run on the card under sync-debug "warn" gives as many
     synchronisation warnings with the span recorder on as with it off (and
     as with no profiler at all), and the profiler counts as many
-    kernel-launch calls either way; off, nothing is recorded."""
+    kernel-launch calls either way: the first keyframe's eager launches, the
+    second's captured ones, and one graph launch for each keyframe from the
+    second on; off, nothing is recorded."""
     import types
     import warnings
 
@@ -341,11 +347,13 @@ def test_the_span_recorder_adds_no_sync_and_no_launch(cuda, frames, monkeypatch)
             torch.cuda.synchronize()
         monkeypatch.undo()
         launches = sum(e.count for e in prof.key_averages() if "Launch" in e.key)
-        counts[record] = (syncs, launches, len(profiling.recorded_spans()))
+        replays = sum(e.count for e in prof.key_averages() if e.key == "cudaGraphLaunch")
+        counts[record] = (syncs, launches, len(profiling.recorded_spans()), replays)
     profiling.clear_spans()
     assert counts[False][:2] == counts[True][:2] and counts[True][0] == plain_syncs
-    assert counts[True][1] > 1000 * (NUM_FRAMES - 1)
-    assert counts[False][2] == 0 and counts[True][2] >= 15 * (NUM_FRAMES - 1)
+    assert counts[True][1] > 2 * 1000 and counts[True][3] == counts[False][3] == NUM_FRAMES - 2
+    # About 20 spans for each eager or captured keyframe, 8 for a replayed one.
+    assert counts[False][2] == 0 and counts[True][2] >= 2 * 15 + 7 * (NUM_FRAMES - 3)
 
 
 @pytest.mark.cuda
@@ -440,6 +448,135 @@ def test_validate_on_the_card(cuda, frames):
     plain = _feed(Frontend(_config(), device=cuda), frames)
     assert checked.get_num_poses() == NUM_FRAMES - 1
     _assert_same_problem(_problem_arrays(checked), _problem_arrays(plain))
+
+
+# --- the keyframe step as a CUDA graph ----------------------------------------
+# tests/test_golden_loop.py's sequence and Frontend settings.
+GOLDEN_RIG = dict(width=512, height=384, cx=256.0, cy=192.0, fx=420.0, fy=420.0)
+GOLDEN_SEQUENCE = dict(num_frames=215, step=0.25, yaw_rate=2 * np.pi / 210, odom_drift=0.02, seed=5,
+                       texture_noise=2.0)
+GOLDEN_CONFIG = dict(max_features=256, frame_life=8, fast_threshold=12.0)
+FAMILIES = ["orb", "brisk", "freak", "akaze", "sift"]
+
+
+@pytest.fixture(scope="module")
+def golden():
+    rig = SyntheticRig(**GOLDEN_RIG)
+    return list(generate_sequence(rig=rig, **GOLDEN_SEQUENCE)), rig
+
+
+def _eager_on_the_card(monkeypatch):
+    """From here on every CUDA Frontend steps eagerly (the step its graphs
+    would capture, on the same static inputs): the reference run."""
+    from vision_slam_frontend_tpu_torch.frontend import frontend as frontend_module
+
+    monkeypatch.setattr(frontend_module._StepGraph, "run",
+                        lambda self, step, frame_id: step(self.left, self.right, self.pose, frame_id))
+
+
+def _assert_bit_equal(a: dict, b: dict, what: str):
+    assert sorted(a) == sorted(b), what
+    for k in b:
+        assert a[k].dtype == b[k].dtype, (what, k)
+        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{what}: {k}")
+
+
+def _window(fe) -> dict:
+    return {f.name: getattr(fe._state, f.name).cpu().numpy() for f in dataclasses.fields(fe._state)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_graph_replay_equals_the_eager_step_over_the_golden_loop(cuda, golden, family, monkeypatch):
+    """The golden loop through a Frontend that replays its step's graph and
+    through one that steps eagerly: the problem's arrays (pixels, points,
+    track ids, matches, poses), the per-keyframe stats and the final window,
+    every field bit for bit."""
+    frames, rig = golden
+    config = FrontendConfig(calib=rig.calib(), descriptor_family=family, **GOLDEN_CONFIG)
+    ck.reset_launch_counts()
+    graphed = _feed(Frontend(config, device=cuda), frames)
+    assert len(graphed._graphs) == 1 and next(iter(graphed._graphs.values())).graph is not None
+    assert sum(ck.REPLAYED.values()) > 0
+    _eager_on_the_card(monkeypatch)
+    eager = _feed(Frontend(config, device=cuda), frames)
+    assert not any(g.graph for g in eager._graphs.values())
+    assert graphed.get_num_poses() == eager.get_num_poses() >= GOLDEN_SEQUENCE["num_frames"] - 5
+    _assert_bit_equal(_problem_arrays(graphed), _problem_arrays(eager), "problem")
+    assert graphed.stats == eager.stats
+    _assert_bit_equal(_window(graphed), _window(eager), "window")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", FAMILIES)
+def test_graph_replay_equals_the_eager_step_with_validate_and_debug_images(cuda, golden, family, monkeypatch):
+    """validate=True and debug_images=True read more fields of the same
+    replayed result: every field of every keyframe's result (raw pixels
+    included) bit for bit, over the golden loop's first 40 frames."""
+    frames, rig = golden
+    config = FrontendConfig(calib=rig.calib(), descriptor_family=family, validate=True, debug_images=True,
+                            **GOLDEN_CONFIG)
+    graphed = _feed(Frontend(config, device=cuda), frames[:40])
+    assert next(iter(graphed._graphs.values())).graph is not None
+    _eager_on_the_card(monkeypatch)
+    eager = _feed(Frontend(config, device=cuda), frames[:40])
+    a, b = graphed.get_debug_data(), eager.get_debug_data()
+    assert len(a) == len(b) == 39
+    for x, y in zip(a, b):
+        fields = [f.name for f in dataclasses.fields(x["result"]) if getattr(y["result"], f.name) is not None]
+        assert len(fields) == 13
+        _assert_bit_equal({n: getattr(x["result"], n) for n in fields}, {n: getattr(y["result"], n) for n in fields},
+                          f"keyframe {x['frame_id']}")
+    _assert_bit_equal(_problem_arrays(graphed), _problem_arrays(eager), "problem")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["orb", "sift"])
+def test_a_run_resumed_from_a_checkpoint_equals_one_uninterrupted(cuda, family, tmp_path):
+    """Saved at keyframe 4 and resumed in a new Frontend, or loaded back
+    into the saving Frontend (its graph captured) after it ran on: both
+    give the uninterrupted run's problem and window bit for bit."""
+    frames = list(generate_sequence(num_frames=10, rig=SyntheticRig()))
+    config = _config(descriptor_family=family, max_features=256, frame_life=4)
+    whole = _feed(Frontend(config, device=cuda), frames)
+    saving = _feed(Frontend(config, device=cuda), frames[:5])
+    ckpt = str(tmp_path / "run.ckpt.npz")
+    saving.save_checkpoint(ckpt)
+    fresh = Frontend(config, device=cuda)
+    _feed(fresh, frames, after=fresh.load_checkpoint(ckpt))
+    _feed(saving, frames[5:8])
+    _feed(saving, frames, after=saving.load_checkpoint(ckpt))
+    assert whole.get_num_poses() == fresh.get_num_poses() == saving.get_num_poses() == 9
+    for resumed in (fresh, saving):
+        assert next(iter(resumed._graphs.values())).graph is not None
+        _assert_bit_equal(_problem_arrays(resumed), _problem_arrays(whole), "problem")
+        _assert_bit_equal(_window(resumed), _window(whole), "window")
+
+
+@pytest.mark.cuda
+def test_the_graph_adds_no_sync(cuda, frames, monkeypatch):
+    """Under sync-debug "warn", a Frontend run that captures and replays its
+    step warns no more often than one that steps eagerly (after a warm-up
+    run that builds the kernels)."""
+    import warnings
+
+    def syncs():
+        fe = Frontend(_config(), device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _feed(fe, frames)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert fe.get_num_poses() == NUM_FRAMES - 1
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    syncs()
+    graphed = syncs()
+    _eager_on_the_card(monkeypatch)
+    assert graphed <= syncs()
 
 
 # --- the BA backend -----------------------------------------------------------

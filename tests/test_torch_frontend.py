@@ -23,6 +23,7 @@ from vision_slam_frontend_tpu.io.serialize import save_problem as jax_save_probl
 from vision_slam_frontend_tpu.io.synthetic import SyntheticRig, generate_sequence  # noqa: E402
 from vision_slam_frontend_tpu_torch.cli import slam_frontend as cli  # noqa: E402
 from vision_slam_frontend_tpu_torch.frontend import Frontend, FrontendConfig  # noqa: E402
+from vision_slam_frontend_tpu_torch.frontend.frontend import step_key  # noqa: E402
 from vision_slam_frontend_tpu_torch.io.serialize import save_problem  # noqa: E402
 
 NUM_FRAMES = 8
@@ -162,3 +163,32 @@ def test_chip_smoke_fails_without_a_gpu():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("change", [
+    dict(config=dict(descriptor_family="brisk")), dict(config=dict(max_features=256)),
+    dict(config=dict(frame_life=8)), dict(config=dict(num_levels=3)), dict(shape=(376, 1241)),
+])
+def test_the_graph_key_differs_with_the_steps_shape(change):
+    """One CUDA graph per key: the family, K, W, levels and image shape each
+    give another key; the same settings give an equal one."""
+    base = FrontendConfig(fast_threshold=12.0)
+    key = step_key(base, "cuda", (480, 640))
+    assert step_key(FrontendConfig(fast_threshold=12.0), "cuda", [480, 640]) == key
+    changed = FrontendConfig(fast_threshold=12.0, **change.get("config", {}))
+    assert step_key(changed, "cuda", change.get("shape", (480, 640))) != key
+
+
+def test_the_graph_key_ignores_settings_outside_the_step():
+    """Thresholds and gates the step reads from its parameters' tensors, and
+    the host-side modes, leave the key as it is."""
+    key = step_key(FrontendConfig(), "cuda", (480, 640))
+    other = FrontendConfig(fast_threshold=30.0, nn_match_ratio=0.7, guided_match_radius=4.0, validate=True,
+                           debug_images=True, min_odom_translation=0.5)
+    assert step_key(other, "cuda", (480, 640)) == key
+
+
+def test_a_cpu_frontend_never_builds_a_graph(slice_run):
+    _, port, _, _ = slice_run
+    assert port.get_num_poses() == NUM_FRAMES - 1
+    assert port._graphs == {}

@@ -26,6 +26,7 @@ from vision_slam_frontend_tpu.frontend.config import FrontendConfig as JaxConfig
 from vision_slam_frontend_tpu.io.synthetic import SyntheticRig, generate_sequence  # noqa: E402
 from vision_slam_frontend_tpu.utils import np_geom  # noqa: E402
 from vision_slam_frontend_tpu_torch.frontend import keyframe as tkf  # noqa: E402
+from vision_slam_frontend_tpu_torch.frontend import Frontend  # noqa: E402
 from vision_slam_frontend_tpu_torch.frontend.config import FrontendConfig  # noqa: E402
 from test_torch_ops import check_points, lstsq_triangulate  # noqa: E402
 
@@ -85,6 +86,17 @@ def _port_step(before, inputs, device=CPU):
         params, state, t(left), t(right), fid, curr_pose_t=t(pose_t), curr_pose_q=t(pose_q), **STEP_KW
     )
     return state, new_state, result
+
+
+def _port_step_in_place(before, inputs):
+    """The Frontend's in-place step on a window made from `before`, with the
+    frame id as a 0-d int32 tensor (a graph's input): (window, result)."""
+    left, right, fid, (pose_t, pose_q) = inputs
+    fe = Frontend(FrontendConfig(calib=SyntheticRig().calib(), fast_threshold=12.0), device=CPU)
+    fe._state = tkf.WindowState.from_numpy(before, CPU)
+    t = torch.from_numpy
+    result = fe._step(t(left), t(right), torch.cat([t(pose_t), t(pose_q)]), torch.tensor(fid, dtype=torch.int32))
+    return fe._state, result
 
 
 def _as_numpy(obj):
@@ -187,3 +199,35 @@ def test_guided_gate_off_matches_no_pose(trajectory):
     new_state, r_no_pose = tkf.keyframe_step(params, state, t(left), t(right), fid, **STEP_KW)
     assert torch.equal(r_gate_off.window_matched, r_no_pose.window_matched)
     assert torch.equal(new_state.pose_q[2], torch.tensor([1.0, 0.0, 0.0, 0.0]))
+
+
+def _assert_fields_equal(a, b):
+    for f in dataclasses.fields(b):
+        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+
+
+@pytest.mark.parametrize("k", range(1, 4))
+def test_a_tensor_frame_id_gives_the_int_ones_step(trajectory, k):
+    """The frame id as a 0-d int32 tensor (what a graph replay reads) gives
+    the step of the Python int, every field of the result and the state."""
+    before, (left, right, fid, pose), _, _ = trajectory[k - 1]
+    _, state_int, result_int = _port_step(before, (left, right, fid, pose))
+    _, state_t, result_t = _port_step(before, (left, right, torch.tensor(fid, dtype=torch.int32), pose))
+    _assert_fields_equal(result_t, result_int)
+    _assert_fields_equal(state_t, state_int)
+    assert (state_t.frame_id == fid).sum() == 1
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_the_in_place_step_writes_the_returned_state(trajectory, k):
+    """The Frontend's step leaves in its window what keyframe_step returns,
+    gives the same result, and its window_frame_id is the pre-update row,
+    held apart from the window it wrote."""
+    before, inputs, _, _ = trajectory[k - 1]
+    _, new_state, result = _port_step(before, inputs)
+    window, result_in_place = _port_step_in_place(before, inputs)
+    _assert_fields_equal(window, new_state)
+    _assert_fields_equal(result_in_place, result)
+    np.testing.assert_array_equal(result_in_place.window_frame_id.numpy(), before["frame_id"])
+    assert result_in_place.window_frame_id.data_ptr() != window.frame_id.data_ptr()
+    assert not torch.equal(window.frame_id, result_in_place.window_frame_id)

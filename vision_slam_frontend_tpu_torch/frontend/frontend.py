@@ -18,6 +18,19 @@ checkpoint npz, so a run checkpointed by either package resumes in the other.
 Each keyframe's observe (upload, step, fetch) and each flush (its wait and
 the accumulation) are spans (utils/profiling.span) whose request is the
 keyframe's frame id.
+
+On CUDA the step is replayed from a CUDA graph, one per static key
+(`step_key`: the step's settings and the image shape). A key's first
+keyframe runs the eager step, which fills the per-device tables and loads
+the kernels outside any capture; its second is captured (a
+`keyframe.capture` span) and every keyframe from then on, that one
+included, replays the graph (a `keyframe.replay` span): a few input copies
+and one graph launch instead of thousands of kernel launches. The graph
+runs the same kernels in the same order, so its results equal the eager
+step's bit for bit. The window is the Frontend's own WindowState, into
+which every step copies its new window (`_step`), so the graphs read and
+write it and `_state` is always the current window. The CPU runs the eager
+step.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ from vision_slam_frontend_tpu_torch.frontend.keyframe import (
     keyframe_step,
 )
 from vision_slam_frontend_tpu_torch.io.serialize import arrays_to_problem, problem_to_arrays
+from vision_slam_frontend_tpu_torch.ops import cuda_kernels
 from vision_slam_frontend_tpu_torch.ops.descriptors import descriptor_dtype, get_family
 from vision_slam_frontend_tpu_torch.types.slam_types import (
     FeatureMatch,
@@ -62,6 +76,52 @@ _HOST_FIELDS = (
 _VALIDATE_FIELDS = _HOST_FIELDS + ("pixels_raw", "right_pixels_raw")
 
 
+def step_key(config: FrontendConfig, device, image_shape) -> tuple:
+    """What a captured keyframe step is specialised to: one CUDA graph per
+    distinct key. (The Frontend always gives the step a pose, so the guided
+    gate is always in the graph.)"""
+    return (torch.device(device), config.descriptor_family.lower(), config.max_features, config.frame_life,
+            config.detect_border, config.blur_sigma, config.num_levels, config.pyramid_scale,
+            config.mutual_check, tuple(image_shape))
+
+
+class _StepGraph:
+    """The keyframe step of one key as a CUDA graph: its static inputs (the
+    two images, the pose, the frame id), written before each step, and its
+    static outputs."""
+
+    def __init__(self, device: torch.device, image_shape):
+        self.left = torch.empty(image_shape, dtype=torch.uint8, device=device)
+        self.right = torch.empty_like(self.left)
+        self.pose = torch.empty(7, dtype=torch.float32, device=device)
+        self.frame_id = torch.zeros((), dtype=torch.int32, device=device)
+        self.warm = False
+        self.graph = None
+        self.result = None
+        self.kernels = {}  # hand-written kernel launches recorded in the graph
+
+    def run(self, step, frame_id: int) -> KeyframeResult:
+        """`step` on the static inputs: eager at the key's first keyframe,
+        captured at its second, replayed from then on (the second too)."""
+        if not self.warm:
+            self.warm = True
+            return step(self.left, self.right, self.pose, frame_id)
+        self.frame_id.fill_(frame_id)
+        if self.graph is None:
+            with span("keyframe.capture", frame_id):
+                before = dict(cuda_kernels.CAPTURED)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    self.result = step(self.left, self.right, self.pose, self.frame_id)
+                self.graph = graph
+                self.kernels = {k: n - before[k] for k, n in cuda_kernels.CAPTURED.items() if n > before[k]}
+        with span("keyframe.replay", frame_id):
+            self.graph.replay()
+            for k, n in self.kernels.items():
+                cuda_kernels.REPLAYED[k] += n
+        return self.result
+
+
 class Frontend:
     """Stateful stereo SLAM frontend on one torch device.
 
@@ -81,6 +141,7 @@ class Frontend:
             self.device, words=family.words, desc_dtype=descriptor_dtype(family),
         )
         self._curr_frame_id = 0
+        self._graphs: dict[tuple, _StepGraph] = {}  # CUDA only, by step_key
 
         self._odom_initialized = False
         self._init_odom_t = np.zeros(3)
@@ -133,22 +194,39 @@ class Frontend:
             return True
         return np_geom.quat_angular_distance(self._prev_odom_q, self._odom_q) > self.config.min_odom_rotation
 
-    def _to_device(self, array: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without waiting for the device:
-        pinned staging and an asynchronous copy on CUDA."""
+    def _to_device(self, array: np.ndarray, out: torch.Tensor | None = None) -> torch.Tensor:
+        """Host array -> device tensor (or into `out`) without waiting for
+        the device: pinned staging and an asynchronous copy on CUDA."""
         t = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        t = t.pin_memory()
+        return t.to(self.device, non_blocking=True) if out is None else out.copy_(t, non_blocking=True)
 
-    def _as_u8(self, img) -> torch.Tensor:
+    def _as_u8(self, img, out: torch.Tensor | None = None) -> torch.Tensor:
         if isinstance(img, torch.Tensor):
             if img.dtype != torch.uint8 or img.device != self.device:
                 raise ValueError(
                     f"image tensors must be uint8 on {self.device}, got {img.dtype} on {img.device}"
                 )
-            return img
-        return self._to_device(np.clip(np.asarray(img), 0, 255).astype(np.uint8))
+            return img if out is None else out.copy_(img)
+        return self._to_device(np.clip(np.asarray(img), 0, 255).astype(np.uint8), out)
+
+    def _step(self, left, right, pose, frame_id) -> KeyframeResult:
+        """The keyframe step with the new window written into the
+        Frontend's own window tensors, so a CUDA graph of it reads and writes
+        the same buffers on every replay. The result's `window_frame_id` is
+        a copy of the pre-update row, taken before the write."""
+        c = self.config
+        new_state, result = keyframe_step(
+            self._params, self._state, left, right, frame_id,
+            capacity=c.max_features, window=c.frame_life, border=c.detect_border, blur_sigma=c.blur_sigma,
+            num_levels=c.num_levels, scale_factor=c.pyramid_scale, descriptor_family=c.descriptor_family,
+            mutual_check=c.mutual_check, curr_pose_t=pose[:3], curr_pose_q=pose[3:],
+        )
+        result.window_frame_id = result.window_frame_id.clone()
+        self._state.copy_(new_state)
+        return result
 
     def observe_image(self, left_image, right_image, time: float) -> bool:
         """Process a stereo pair (numpy arrays, or uint8 tensors already on
@@ -162,27 +240,22 @@ class Frontend:
                 q_init_inv = np_geom.quat_inverse(self._init_odom_q)
                 pose_t = np_geom.quat_rotate(q_init_inv, self._odom_t - self._init_odom_t)
                 pose_q = np_geom.quat_multiply(self._odom_q, q_init_inv)
-                pose = self._to_device(np.concatenate([pose_t, pose_q]).astype(np.float32))
-                left, right = self._as_u8(left_image), self._as_u8(right_image)
+                pose = np.concatenate([pose_t, pose_q]).astype(np.float32)
+                graph = None
+                if self.device.type == "cuda":
+                    shape = tuple(np.shape(left_image)[:2])
+                    key = step_key(self.config, self.device, shape)
+                    if key not in self._graphs:
+                        self._graphs[key] = _StepGraph(self.device, shape)
+                    graph = self._graphs[key]
+                    self._as_u8(left_image, graph.left)
+                    self._as_u8(right_image, graph.right)
+                    self._to_device(pose, graph.pose)
+                else:
+                    inputs = (self._as_u8(left_image), self._as_u8(right_image), self._to_device(pose))
 
             with span("keyframe.step"):
-                self._state, result = keyframe_step(
-                    self._params,
-                    self._state,
-                    left,
-                    right,
-                    fid,
-                    capacity=self.config.max_features,
-                    window=self.config.frame_life,
-                    border=self.config.detect_border,
-                    blur_sigma=self.config.blur_sigma,
-                    num_levels=self.config.num_levels,
-                    scale_factor=self.config.pyramid_scale,
-                    descriptor_family=self.config.descriptor_family,
-                    mutual_check=self.config.mutual_check,
-                    curr_pose_t=pose[:3],
-                    curr_pose_q=pose[3:],
-                )
+                result = self._step(*inputs, fid) if graph is None else graph.run(self._step, fid)
             ctx = {
                 "fid": fid,
                 "timestamp": self._odom_timestamp,
@@ -394,7 +467,7 @@ class Frontend:
                 f"frontend ({self.config.descriptor_family}) keeps {tuple(self._state.desc.shape)} "
                 f"{self._state.desc.dtype}"
             )
-        self._state = state
+        self._state.copy_(state)  # in place: the captured steps read and write these tensors
         self._curr_frame_id = int(data["ckpt_curr_frame_id"])
         self._odom_initialized = bool(data["ckpt_odom_initialized"])
         self._init_odom_t = data["ckpt_init_odom_t"]

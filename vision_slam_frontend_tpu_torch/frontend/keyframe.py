@@ -8,9 +8,13 @@ window update.
 The step is eager PyTorch over fixed-capacity masked tensors on one device.
 It never waits for the device: no `.item()`, no `nonzero()`, no boolean
 indexing, no Python branch on a tensor, and no copy from host memory (the
-constant tables are uploaded once per device, ops/brief._tables). The
-caller's WindowState is never mutated; the step returns a new one. Each
-stage is a span (utils/profiling.span) whose request is the frame id.
+constant tables are uploaded once per device, ops/brief._tables), so it can
+be captured into a CUDA graph. The caller's WindowState is never mutated;
+the step returns a new one (the Frontend copies it into its own window,
+`WindowState.copy_`). The frame id is a Python int or a 0-d int32 tensor on
+the step's device (a graph's input, written before each replay). Each stage
+is a span (utils/profiling.span) whose request is the frame id, or the
+enclosing span's where the id is a tensor.
 """
 
 from __future__ import annotations
@@ -136,6 +140,11 @@ class WindowState:
             fields[f.name] = torch.from_numpy(np.array(a, order="C")).to(device)
         return cls(**fields)
 
+    def copy_(self, other: "WindowState") -> None:
+        """Write `other`'s fields into this state's own tensors."""
+        for f in dataclasses.fields(self):
+            getattr(self, f.name).copy_(getattr(other, f.name))
+
 
 @dataclasses.dataclass
 class KeyframeResult:
@@ -162,7 +171,7 @@ def keyframe_step(
     state: WindowState,
     left_image: torch.Tensor,
     right_image: torch.Tensor,
-    frame_id: int,
+    frame_id: int | torch.Tensor,
     capacity: int = 512,
     window: int = 10,
     border: int = 19,
@@ -179,25 +188,27 @@ def keyframe_step(
 
     `curr_pose_t`/`curr_pose_q` is the current odometry world pose; when
     given, the odometry-guided match gate runs and the window carries the
-    pose. None disables the gate."""
+    pose. None disables the gate. `frame_id` is an int or a 0-d int32
+    tensor on the state's device; both give the same results."""
     K = capacity
     W = window
     dev = state.count.device
+    request = None if isinstance(frame_id, torch.Tensor) else frame_id
 
     # --- 1. Feature extraction, both cameras.
     extract = get_family(descriptor_family).extractor
-    with span("keyframe.extract", frame_id):
+    with span("keyframe.extract", request):
         l_kps, _, l_desc, l_valid = extract(
             left_image, threshold=params.fast_threshold, max_keypoints=K,
             border=border, blur_sigma=blur_sigma, num_levels=num_levels, scale_factor=scale_factor,
         )
-    with span("keyframe.extract", frame_id):
+    with span("keyframe.extract", request):
         r_kps, _, r_desc, r_valid = extract(
             right_image, threshold=params.fast_threshold, max_keypoints=K,
             border=border, blur_sigma=blur_sigma, num_levels=num_levels, scale_factor=scale_factor,
         )
 
-    with span("keyframe.stereo", frame_id):
+    with span("keyframe.stereo", request):
         # --- 2. Stereo ratio-test match, left queries vs right trains.
         r_idx, _, s_matched = ratio_test_match(l_desc, l_valid, r_desc, r_valid, params.nn_match_ratio)
 
@@ -218,7 +229,7 @@ def keyframe_step(
         num_features = f_valid.sum(dtype=torch.int32)
 
     # --- 5. Window matching: all W past frames vs the current frame.
-    with span("keyframe.window_match", frame_id):
+    with span("keyframe.window_match", request):
         w_idx, w_dist, w_matched = match_window(
             state.desc, state.valid, f_desc, f_valid,
             params.nn_match_ratio, params.best_percent, mutual=mutual_check,
@@ -230,7 +241,7 @@ def keyframe_step(
     # guided_radius px of its matched pixel; points without usable depth pass,
     # points predicted behind the camera are rejected. The undistorted left
     # pixels are its targets (and the node's pixels, step 8).
-    with span("keyframe.guided_gate", frame_id):
+    with span("keyframe.guided_gate", request):
         lu = undistort_points(params.intr_left, f_kps)
         if curr_pose_t is not None:
             Rw = quat_to_matrix(state.pose_q)  # (W, 3, 3)
@@ -257,7 +268,7 @@ def keyframe_step(
     # track ids. Where two winners claim one feature (an exact tie kept by
     # the one-to-one cut), the higher flat (w * K + q) position wins: the
     # reference's scatter lets the last write win on the CPU.
-    with span("keyframe.tracks", frame_id):
+    with span("keyframe.tracks", request):
         tid = frame_id * K + torch.arange(K, dtype=torch.int32, device=dev)
         w_rows = torch.arange(W, dtype=torch.float32, device=dev)[:, None]
         prio = w_rows * 1000.0 + w_dist.clamp(max=999.0)  # (W, K)
@@ -272,7 +283,7 @@ def keyframe_step(
         )[:K]
         tid = torch.where(src >= 0, state.track_id.reshape(-1)[src.clamp(min=0)], tid)
 
-    with span("keyframe.geometry", frame_id):
+    with span("keyframe.geometry", request):
         # --- 7. Triangulation on undistorted stereo pairs.
         ru = undistort_points(params.intr_right, f_right_kps)
         points3d = triangulate_points(params.P_left, params.P_right, lu, ru)
@@ -300,7 +311,8 @@ def keyframe_step(
             desc=updated(state.desc, f_desc),
             valid=updated(state.valid, f_valid),
             track_id=updated(state.track_id, tid),
-            frame_id=updated(state.frame_id, torch.full((), frame_id, dtype=torch.int32, device=dev)),
+            frame_id=updated(state.frame_id, frame_id if request is None
+                             else torch.full((), frame_id, dtype=torch.int32, device=dev)),
             count=(state.count + 1).clamp(max=W),
             stereo_threshold=new_threshold,
             points3d=updated(state.points3d, points3d),
@@ -325,3 +337,4 @@ def keyframe_step(
             stereo_threshold=new_threshold,
         )
     return new_state, result
+

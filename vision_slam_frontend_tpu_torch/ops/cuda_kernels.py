@@ -8,7 +8,10 @@ There is no other fallback.
 
 `LAUNCHES` counts kernel launches per wrapper (plain-version calls and calls
 captured into a CUDA graph do not count), so a run can show that its path
-went through the kernels.
+went through the kernels. `CAPTURED` counts the calls recorded into CUDA
+graphs instead, and `REPLAYED` the kernels that replays of the Frontend's
+step graphs ran (each replay adds its graph's captured count); `runs()` is
+what ran either way.
 
 Kernels (source, TPU kernel replaced):
   fast_scores_nms  csrc/fast_nms.cu         pallas_kernels.fast_scores_nms
@@ -24,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 LAUNCHES = {"fast_scores_nms": 0, "extract_patches": 0, "hamming_top2": 0, "patch_windows": 0}
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
+REPLAYED = dict.fromkeys(LAUNCHES, 0)
 
 # The FAST ring (ops/fast.py RING_OFFSETS): radius-3 Bresenham circle,
 # clockwise from 12 o'clock, as (dy, dx).
@@ -37,8 +42,14 @@ ARC_LENGTH = 9
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CAPTURED, REPLAYED):
+        for name in counts:
+            counts[name] = 0
+
+
+def runs() -> dict:
+    """Kernels run per wrapper: stream launches plus graph replays."""
+    return {name: LAUNCHES[name] + REPLAYED[name] for name in LAUNCHES}
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -61,7 +72,9 @@ def _launch(name: str, device: torch.device, *args) -> None:
         )
     # A call made while the stream is captured into a CUDA graph records the
     # kernel and launches nothing; the graph's replays are not this wrapper's.
-    if not torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[name] += 1
+    else:
         LAUNCHES[name] += 1
 
 
