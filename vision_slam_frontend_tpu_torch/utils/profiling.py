@@ -16,7 +16,9 @@ rather than stage by stage: while a torch.profiler records this process,
 each span keeps its name, parent, thread, request and host-clock interval
 (`recorded_spans`) and shows in the profiler's trace under its name;
 otherwise a span costs one flag read. `span_table` sums them for an
-operator; `write_trace` prints it.
+operator; `write_trace` prints it. A counter (`count`) is a number the
+program observed, kept the same way: only while a profiler records, with the
+request of the span open around it (`recorded_counters`).
 """
 
 from __future__ import annotations
@@ -50,7 +52,20 @@ class SpanRecord(NamedTuple):
     t1: float
 
 
+class CounterRecord(NamedTuple):
+    """One recorded counter: `value` observed at host time `t`
+    (time.perf_counter() seconds) on `thread`, for the `request` of the
+    innermost span open there (None outside any span)."""
+
+    name: str
+    value: float
+    thread: int
+    request: object
+    t: float
+
+
 _RECORDED: list[SpanRecord] = []
+_COUNTED: list[CounterRecord] = []
 _SPAN_IDS = itertools.count(1)
 _OPEN = threading.local()  # .stack: this thread's open spans, innermost last
 _OFF = contextlib.nullcontext()
@@ -110,6 +125,33 @@ def recorded_spans() -> list[SpanRecord]:
 
 def clear_spans() -> None:
     _RECORDED.clear()
+
+
+def recording() -> bool:
+    """Whether a torch.profiler records this process: spans and counters
+    are kept only then. A caller computes a counter's value only when this
+    holds, so that nothing is launched or fetched for it otherwise."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def count(name: str, value: float) -> None:
+    """Record the host number `value` under `name` while a torch.profiler
+    records this process (nothing otherwise), with the request of the
+    innermost span open on this thread."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    stack = getattr(_OPEN, "stack", None)
+    request = stack[-1].request if stack else None
+    _COUNTED.append(CounterRecord(name, float(value), threading.get_ident(), request, time.perf_counter()))
+
+
+def recorded_counters() -> list[CounterRecord]:
+    """The counters recorded so far in this process, in order."""
+    return list(_COUNTED)
+
+
+def clear_counters() -> None:
+    _COUNTED.clear()
 
 
 def span_table(spans) -> str:
@@ -282,7 +324,7 @@ def start_trace(device):
 def write_trace(prof, directory: str, name: str) -> str:
     """Stop `prof` (after the device's queued work) and write its Chrome
     trace to `directory`/`name`; then print the table of the spans recorded
-    meanwhile (span_table) and forget them. Returns the path."""
+    meanwhile (span_table) and forget them and the counters. Returns the path."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     prof.stop()
@@ -294,4 +336,5 @@ def write_trace(prof, directory: str, name: str) -> str:
     if spans:
         print(span_table(spans))
         clear_spans()
+    clear_counters()
     return path
