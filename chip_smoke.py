@@ -1727,7 +1727,8 @@ def lba_window(npz: str, dev):
 def phase_lba_solve(npz: str, dev):
     """(b), second half, and (c): one steady window solved again: synced and
     enqueue ms (median of 5), launches and device ms of one solve under
-    torch.profiler; then one pipelined dispatch under sync-debug "error"."""
+    torch.profiler; then one pipelined dispatch, replaying its bucket's
+    graph, under sync-debug "error"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1759,8 +1760,9 @@ def phase_lba_solve(npz: str, dev):
     device_ms = sum(e.self_device_time_total for e in device) / 1e3 if device else None
 
     state = LocalBAState()
-    windowed_local_ba(problem, config, window=LBA_WINDOW, pipeline=True, state=state, device=dev)  # warm-up
-    state.flush()
+    for _ in range(2):  # warm-up: the bucket's first window runs eagerly, its second is captured
+        windowed_local_ba(problem, config, window=LBA_WINDOW, pipeline=True, state=state, device=dev)
+        state.flush()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1768,6 +1770,7 @@ def phase_lba_solve(npz: str, dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     check(state.in_flight, "the pipelined dispatch left nothing in flight")
+    check(sum(g.replays for g in state._graphs.values()) == 2, "the steady dispatch was no graph replay")
     updated, info = state.flush()
     check(updated == min(LBA_WINDOW, len(problem.nodes)) - 2 and np.isfinite(info["cost"]),
           f"pipelined solve: {updated} poses, {info}")
@@ -1777,7 +1780,7 @@ def phase_lba_solve(npz: str, dev):
             f"{n['synced_ms']:.2f} ms synced, {n['enqueue_ms']:.2f} ms enqueue (medians of 5); "
             + ("launches not measured" if n["launches"] is None else f"{n['launches']} launches") + ", "
             + ("device time not measured" if device_ms is None else f"{device_ms:.2f} ms device")
-            + " (one solve under torch.profiler) | (c) a steady pipelined dispatch under sync-debug 'error': no "
+            + " (one solve under torch.profiler) | (c) a steady pipelined dispatch (a graph replay) under sync-debug 'error': no "
             f"host sync; its flush refined {updated} poses, cost {info['history'][0]:.1f} -> {info['cost']:.1f}")
     return n, line
 

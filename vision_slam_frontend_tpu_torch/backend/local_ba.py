@@ -14,6 +14,12 @@ CUDA event, and is applied at the caller's next call (or `flush`), so the
 device solve overlaps the caller's next frame. The in-flight solve and the
 camera are held by a `LocalBAState` that the caller owns, one per session:
 nothing lives in module globals.
+
+On CUDA with a state, each capacity bucket of _pad_ba_for_device keeps the
+solve as a CUDA graph (`_SolveGraph`): the bucket's first window runs
+eagerly on the bucket's static inputs, its second is captured, and every
+later one is one replay, so a window's ~22,000 launches become one
+cudaGraphLaunch with the same kernels in the same order.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from vision_slam_frontend_tpu_torch.types.slam_types import (
     SLAMNode,
     SLAMProblem,
     VisionFactor,
+    _field_dtype,
 )
 from vision_slam_frontend_tpu_torch.utils.device import resolve_device
 from vision_slam_frontend_tpu_torch.utils.profiling import span
@@ -94,7 +101,7 @@ def _pad_ba_for_device(ba: dict, n_poses: int, lm_mult: int = 512, obs_mult: int
     """Pad a BA problem's numpy arrays to bucketed capacities: poses to
     `n_poses`, landmarks and observations to multiples of `lm_mult` and
     `obs_mult`, odometry to `odom_cap`, so a session meets a handful of
-    shapes (one CUDA graph each, later). Padded poses are masked and frozen
+    shapes (one CUDA graph each, `_SolveGraph`). Padded poses are masked and frozen
     with identity quaternions (no factor touches them); padded landmarks,
     observations and odometry are masked out. The gather tables are dropped:
     the device solve takes the scatter form."""
@@ -183,16 +190,99 @@ def _solve_window(cam: CameraParams, prob: BAProblem, settings: LocalSolveSettin
     return torch.cat([pt.reshape(-1), pq.reshape(-1), cost0.reshape(1), cost.reshape(1), accepted.float()])
 
 
-def window_problem(sub: SLAMProblem, config, window: int, n_fixed: int, device) -> BAProblem:
-    """The device solve's input for a window sub-problem (slice_problem's):
-    its tracks in numpy without gather tables, the first `n_fixed` poses
-    frozen, padded to the buckets of _pad_ba_for_device, uploaded to
-    `device` in one non-blocking pass."""
+def window_arrays(sub: SLAMProblem, config, window: int, n_fixed: int) -> dict:
+    """The device solve's input for a window sub-problem (slice_problem's)
+    in numpy: its tracks without gather tables, the first `n_fixed` poses
+    frozen, padded to the buckets of _pad_ba_for_device."""
     arrays = build_ba_arrays(sub, left_cam_to_robot=config.left_cam_to_robot, gather_tables=False)
     fixed = np.zeros(arrays["poses_t"].shape[0], bool)
     fixed[:n_fixed] = True
     arrays["pose_fixed"] = fixed
-    return BAProblem.from_numpy(_pad_ba_for_device(arrays, n_poses=window), device=device)
+    return _pad_ba_for_device(arrays, n_poses=window)
+
+
+def window_problem(sub: SLAMProblem, config, window: int, n_fixed: int, device) -> BAProblem:
+    """window_arrays uploaded to `device` in one non-blocking pass."""
+    return BAProblem.from_numpy(window_arrays(sub, config, window, n_fixed), device=device)
+
+
+def _bucket_key(padded: dict, device) -> tuple:
+    """A padded window's capacity bucket: (P, L, N, Q, whether it has right
+    observations, device)."""
+    return (padded["poses_t"].shape[0], padded["landmarks"].shape[0], padded["obs_pose"].shape[0],
+            padded["odom_i"].shape[0], "obs_pixel_right" in padded, torch.device(device))
+
+
+# Each static input starts on the caching allocator's block boundary, where
+# a tensor of its own would: the kernels see the alignment the eager solve sees.
+_ALIGN = 512
+
+
+class _SolveGraph:
+    """One capacity bucket's solve as a CUDA graph. Its static inputs are
+    the bucket's BAProblem fields as views of one device buffer, written by
+    one copy from a pinned staging buffer of the same layout; its static
+    output is _solve_window's packed vector."""
+
+    def __init__(self, padded: dict, device):
+        device = torch.device(device)
+        cuda = device.type == "cuda"
+        layout, size = [], 0
+        for f in dataclasses.fields(BAProblem):
+            a = padded.get(f.name)
+            if a is None:
+                continue
+            a = np.asarray(a)
+            dtype = torch.from_numpy(np.empty(0, _field_dtype(f.name, a.dtype))).dtype
+            nbytes = a.size * dtype.itemsize
+            layout.append((f.name, size, nbytes, dtype, a.shape))
+            size += -(-nbytes // _ALIGN) * _ALIGN
+        self.staging = torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
+        self.buffer = torch.empty(size, dtype=torch.uint8, device=device) if cuda else self.staging
+
+        def views(buf):
+            return {name: buf[o : o + n].view(dt).view(shape) for name, o, n, dt, shape in layout}
+
+        self.host = {name: t.numpy() for name, t in views(self.staging).items()}
+        self.problem = BAProblem(**views(self.buffer))
+        self.uploaded = None  # the CUDA event after the last copy out of the staging buffer
+        self.warm = False
+        self.graph = None
+        self.result = None
+        self.replays = 0
+
+    def upload(self, padded: dict) -> BAProblem:
+        """A window of this bucket written into the static inputs: each
+        array cast into its slot of the staging buffer, once the copy that
+        last read the buffer has completed, then one non-blocking copy."""
+        if self.uploaded is not None:
+            self.uploaded.synchronize()
+        for name, slot in self.host.items():
+            np.copyto(slot, padded[name], casting="unsafe")
+        if self.buffer is not self.staging:
+            self.buffer.copy_(self.staging, non_blocking=True)
+            self.uploaded = torch.cuda.Event()
+            self.uploaded.record()
+        return self.problem
+
+    def run(self, cam: CameraParams, request) -> torch.Tensor:
+        """_solve_window on the static inputs: eager at the bucket's first
+        window, captured at its second, replayed from then on (the second
+        too). The result is the graph's static output, rewritten by the
+        next replay."""
+        if not self.warm:
+            self.warm = True
+            return _solve_window(cam, self.problem)
+        if self.graph is None:
+            with span("local_ba.capture", request):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    self.result = _solve_window(cam, self.problem)
+                self.graph = graph
+        with span("local_ba.replay", request):
+            self.graph.replay()
+        self.replays += 1
+        return self.result
 
 
 class _InFlight(NamedTuple):
@@ -241,20 +331,33 @@ def _apply(solve: _InFlight):
 
 class LocalBAState:
     """What one session's local BA keeps between keyframes: a single camera
-    slot and the in-flight pipelined solve. The caller owns it (one per
-    Frontend); two states in one process never see each other's solves."""
+    slot, the in-flight pipelined solve and, on CUDA, one solve graph per
+    capacity bucket. The caller owns it (one per Frontend); two states in
+    one process never see each other's solves or graphs."""
 
     def __init__(self):
         self._camera = None  # (config, device, CameraParams)
         self._in_flight: Optional[_InFlight] = None
+        self._graphs: dict[tuple, _SolveGraph] = {}  # by _bucket_key
 
     def camera(self, config, device) -> CameraParams:
-        """The config's CameraParams on `device`, uploaded once per session."""
+        """The config's CameraParams on `device`, uploaded once per session.
+        A new camera drops the graphs, which read the one they were captured
+        with."""
         device = torch.device(device)
         slot = self._camera
         if slot is None or slot[0] is not config or slot[1] != device:
+            self._graphs.clear()
             self._camera = slot = (config, device, CameraParams.from_config(config, device=device))
         return slot[2]
+
+    def graph(self, padded: dict, device) -> _SolveGraph:
+        """The solve graph of a padded window's bucket, made at the bucket's
+        first window."""
+        key = _bucket_key(padded, device)
+        if key not in self._graphs:
+            self._graphs[key] = _SolveGraph(padded, device)
+        return self._graphs[key]
 
     @property
     def in_flight(self) -> bool:
@@ -310,7 +413,8 @@ def windowed_local_ba(
     stay frozen as the anchor to the rest of the trajectory.
 
     Runs the device solve (_device_lm_solve) on `device` (default cuda;
-    raises where there is no GPU) over bucketed capacities. Mutates
+    raises where there is no GPU) over bucketed capacities; on CUDA with a
+    `state`, as the bucket's CUDA graph (`_SolveGraph`). Mutates
     `problem` in place (updates the tail nodes' poses). Returns
     (updated_tail_count, info); info is None when the window is too small to
     optimize. An explicit `solver` runs the host-loop optimize() instead
@@ -346,10 +450,12 @@ def windowed_local_ba(
         device = resolve_device(device)
         m = len(sub.nodes)
         k0 = min(fixed_overlap, m)
-        prob = window_problem(sub, config, window, k0, device)
+        padded = window_arrays(sub, config, window, k0)
         cam = (state or LocalBAState()).camera(config, device)
+        graph = state.graph(padded, device) if state is not None and device.type == "cuda" else None
+        prob = BAProblem.from_numpy(padded, device=device) if graph is None else graph.upload(padded)
     with span("local_ba.dispatch", request):
-        host, event = _fetch(_solve_window(cam, prob))
+        host, event = _fetch(_solve_window(cam, prob) if graph is None else graph.run(cam, request))
     solve = _InFlight([problem.nodes[start + k] for k in range(m)], k0, prob.num_poses, host, event)
     if pipeline:
         state._in_flight = solve

@@ -133,6 +133,14 @@ class SLAMNodeSolution:
 _INDEX_FIELDS = ("obs_pose", "obs_landmark", "odom_i", "odom_j", "pose_obs", "lm_obs")
 
 
+def _field_dtype(name: str, dtype) -> np.dtype:
+    """The numpy dtype a BAProblem field takes in the port: int64 for an
+    index field, bool for a mask given as bool, float32 for the rest."""
+    if name in _INDEX_FIELDS:
+        return np.dtype(np.int64)
+    return np.dtype(bool) if dtype == bool else np.dtype(np.float32)
+
+
 @dataclasses.dataclass
 class BAProblem:
     """Bundle-adjustment problem as flat, fixed-capacity masked tensors
@@ -220,11 +228,7 @@ class BAProblem:
             if v is None:
                 continue
             a = np.asarray(v)
-            if f.name in _INDEX_FIELDS:
-                a = a.astype(np.int64)
-            elif a.dtype != bool:
-                a = a.astype(np.float32)
-            t = torch.from_numpy(np.array(a, order="C"))
+            t = torch.from_numpy(np.array(a.astype(_field_dtype(f.name, a.dtype)), order="C"))
             out[f.name] = (t.pin_memory() if to_cuda else t).to(device, non_blocking=to_cuda)
         return cls(**out)
 
