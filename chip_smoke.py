@@ -1770,7 +1770,7 @@ def phase_lba_solve(npz: str, dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     check(state.in_flight, "the pipelined dispatch left nothing in flight")
-    check(sum(g.replays for g in state._graphs.values()) == 2, "the steady dispatch was no graph replay")
+    check(sum(g.call.replays for g in state._graphs.values()) == 2, "the steady dispatch was no graph replay")
     updated, info = state.flush()
     check(updated == min(LBA_WINDOW, len(problem.nodes)) - 2 and np.isfinite(info["cost"]),
           f"pipelined solve: {updated} poses, {info}")

@@ -468,10 +468,9 @@ def golden():
 def _eager_on_the_card(monkeypatch):
     """From here on every CUDA Frontend steps eagerly (the step its graphs
     would capture, on the same static inputs): the reference run."""
-    from vision_slam_frontend_tpu_torch.frontend import frontend as frontend_module
+    from vision_slam_frontend_tpu_torch.utils.cuda_graph import CapturedCall
 
-    monkeypatch.setattr(frontend_module._StepGraph, "run",
-                        lambda self, step, frame_id: step(self.left, self.right, self.pose, frame_id))
+    monkeypatch.setattr(CapturedCall, "__call__", lambda self, fn, request: fn())
 
 
 def _assert_bit_equal(a: dict, b: dict, what: str):
@@ -496,11 +495,11 @@ def test_graph_replay_equals_the_eager_step_over_the_golden_loop(cuda, golden, f
     config = FrontendConfig(calib=rig.calib(), descriptor_family=family, **GOLDEN_CONFIG)
     ck.reset_launch_counts()
     graphed = _feed(Frontend(config, device=cuda), frames)
-    assert len(graphed._graphs) == 1 and next(iter(graphed._graphs.values())).graph is not None
+    assert len(graphed._graphs) == 1 and next(iter(graphed._graphs.values())).call.graph is not None
     assert sum(ck.REPLAYED.values()) > 0
     _eager_on_the_card(monkeypatch)
     eager = _feed(Frontend(config, device=cuda), frames)
-    assert not any(g.graph for g in eager._graphs.values())
+    assert not any(g.call.graph for g in eager._graphs.values())
     assert graphed.get_num_poses() == eager.get_num_poses() >= GOLDEN_SEQUENCE["num_frames"] - 5
     _assert_bit_equal(_problem_arrays(graphed), _problem_arrays(eager), "problem")
     assert graphed.stats == eager.stats
@@ -517,7 +516,7 @@ def test_graph_replay_equals_the_eager_step_with_validate_and_debug_images(cuda,
     config = FrontendConfig(calib=rig.calib(), descriptor_family=family, validate=True, debug_images=True,
                             **GOLDEN_CONFIG)
     graphed = _feed(Frontend(config, device=cuda), frames[:40])
-    assert next(iter(graphed._graphs.values())).graph is not None
+    assert next(iter(graphed._graphs.values())).call.graph is not None
     _eager_on_the_card(monkeypatch)
     eager = _feed(Frontend(config, device=cuda), frames[:40])
     a, b = graphed.get_debug_data(), eager.get_debug_data()
@@ -548,7 +547,7 @@ def test_a_run_resumed_from_a_checkpoint_equals_one_uninterrupted(cuda, family, 
     _feed(saving, frames, after=saving.load_checkpoint(ckpt))
     assert whole.get_num_poses() == fresh.get_num_poses() == saving.get_num_poses() == 9
     for resumed in (fresh, saving):
-        assert next(iter(resumed._graphs.values())).graph is not None
+        assert next(iter(resumed._graphs.values())).call.graph is not None
         _assert_bit_equal(_problem_arrays(resumed), _problem_arrays(whole), "problem")
         _assert_bit_equal(_window(resumed), _window(whole), "window")
 

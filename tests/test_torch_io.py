@@ -6,7 +6,6 @@ arrays, equal dicts.
 """
 
 import bz2
-import math
 import os
 import struct
 import subprocess
@@ -36,7 +35,6 @@ from vision_slam_frontend_tpu_torch.io import ros_msgs as tmsgs
 from vision_slam_frontend_tpu_torch.io import rosbag as tbag
 from vision_slam_frontend_tpu_torch.io.synthetic import SyntheticRig
 from vision_slam_frontend_tpu_torch.types import slam_types as ttypes
-from vision_slam_frontend_tpu_torch.utils import yaml_subset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILIES = ["orb", "brisk", "freak", "akaze", "sift"]
@@ -327,8 +325,7 @@ def _config_fields(c) -> dict:
 @pytest.mark.parametrize("family", FAMILIES)
 def test_configs_cross_packages(tmp_path, family):
     """A config saved by either package loads in the other, with every field
-    and derived matrix equal; the port writes the JAX package's bytes, and
-    the YAML reader agrees with yaml.safe_load on both files."""
+    and derived matrix equal, and the port writes the JAX package's bytes."""
     kw = dict(descriptor_family=family, max_features=256, frame_life=8, fast_threshold=12.0,
               validate=family == "sift", guided_match_radius=-1.0 if family == "akaze" else 40.0)
     jpath, tpath = str(tmp_path / "j.yaml"), str(tmp_path / "t.yaml")
@@ -339,8 +336,6 @@ def test_configs_cross_packages(tmp_path, family):
     assert _config_fields(ours) == _config_fields(theirs)
     for k in ("K_left", "K_right", "P_left", "P_right", "fundamental", "left_cam_to_robot"):
         np.testing.assert_array_equal(getattr(ours, k), np.asarray(getattr(theirs, k)), err_msg=k)
-    for path in (jpath, tpath):
-        assert yaml_subset.load(path) == yaml.safe_load(open(path))
     with open(tpath, "a") as f:
         f.write("not_a_field: 1\n")
     for cls in (FrontendConfig, JaxConfig):
@@ -371,47 +366,53 @@ distortion_model: radial-tangential
 distortion_coefficients: [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
 """
 
-_ODD_YAML = """# scalars YAML 1.1 resolves, flow and block forms
-flow: {a: 1, 'b c': [1, 2, {d: "x\\ty"}], e: []}
-seq_of_maps:
-  - name: one
-    values: [1e-05, 0o7, 012, 0x1F, 1:30, 1_000, +.5, -.inf, .NaN]
-  - name: two   # trailing comment
-    flags: [yes, No, on, OFF, ~, null, '', "#not a comment"]
-nested:
-- - - 1
-    - 2
-  - - 3
-quoted: 'it''s'
-"""
+_CONFIG_FILES = {
+    "unclosed_flow_list": ("frame_life: 6\nmax_features: [256, 512\n", yaml.YAMLError),
+    "tab_indentation": ("calib:\n\tintrinsics_left: {}\n", yaml.YAMLError),
+    "unknown_key": ("max_features: 256\nnot_a_field: 1\n", ValueError),
+    "top_level_list": ("- max_features: 256\n", TypeError),
+    "anchor_and_alias": ("fast_threshold: &t 12.5\nstereo_threshold_padding: *t\nframe_life: 6\n", None),
+}
 
 
-@pytest.mark.parametrize("text", [_SENSOR_YAML, _ODD_YAML], ids=["euroc_sensor", "yaml_1_1_scalars"])
-def test_yaml_reader_agrees_with_pyyaml(text):
-    ours = yaml_subset.loads(text)
-    theirs = yaml.safe_load("\n".join(ln for ln in text.splitlines() if not ln.startswith("%")))
+@pytest.mark.parametrize("name", sorted(_CONFIG_FILES))
+def test_config_load_reads_and_fails_as_the_jax_package_does(tmp_path, name):
+    """A file the JAX package refuses, the port refuses with the same
+    exception type; a file it reads (YAML's anchors and aliases), the port
+    reads to the same config."""
+    text, error = _CONFIG_FILES[name]
+    path = tmp_path / "c.yaml"
+    path.write_text(text)
 
-    def same(a, b):
-        if isinstance(a, float) and math.isnan(a):
-            return isinstance(b, float) and math.isnan(b)
-        if type(a) is not type(b):
-            return False
-        if isinstance(a, dict):
-            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
-        if isinstance(a, list):
-            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
-        return a == b
+    def outcome(cls):
+        try:
+            return _config_fields(cls.load(str(path)))
+        except Exception as e:  # noqa: BLE001 - the exception's type is the outcome compared
+            return type(e)
 
-    assert same(ours, theirs), (ours, theirs)
-    assert same(yaml_subset.loads(yaml_subset.dumps(theirs)), theirs)
-    assert same(yaml.safe_load(yaml_subset.dumps(theirs)), theirs)
+    ours, theirs = outcome(FrontendConfig), outcome(JaxConfig)
+    assert ours == theirs
+    if error is None:
+        assert ours["fast_threshold"] == ours["stereo_threshold_padding"] == 12.5 and ours["frame_life"] == 6
+    else:
+        assert issubclass(ours, error)
 
 
-@pytest.mark.parametrize("text", ["a: &x 1\nb: *x\n", "a: |\n  text\n", "a: 1\n---\nb: 2\n", "a: [1, 2\n",
-                                  "a:\n  - 1\n   - 2\n", "t: 2001-12-14\n"])
-def test_yaml_reader_refuses_what_it_does_not_read(text):
-    with pytest.raises(ValueError):
-        yaml_subset.loads(text)
+@pytest.mark.parametrize("source", ["write_directory", "mh_01"])
+def test_euroc_sensor_files_read_as_the_jax_package_reads_them(tmp_path, source):
+    """io/euroc.write_directory's own sensor.yaml, and the published MH_01
+    form (a `%YAML:1.0` directive, comments, a flow list over four lines):
+    the port's camera parameters equal the JAX package's."""
+    if source == "write_directory":
+        teuroc.write_directory(str(tmp_path), [], SyntheticRig(**SMALL_RIG))
+    else:
+        os.makedirs(tmp_path / "mav0" / "cam0")
+        (tmp_path / "mav0" / "cam0" / "sensor.yaml").write_text(_SENSOR_YAML)
+    cam = str(tmp_path / "mav0" / "cam0")
+    (ours, T), (theirs, jT) = teuroc._cam_params(cam), jeuroc._cam_params(cam)
+    assert ours == theirs and len(ours) == 9
+    assert T.dtype == jT.dtype == np.float64
+    np.testing.assert_array_equal(T, jT)
 
 
 def _kitti_calib_dir(path, seed):

@@ -358,7 +358,7 @@ def test_a_buckets_static_inputs_equal_from_numpy(session_npz, config):
             assert torch.equal(g, w), f
     cam = CameraParams.from_config(config, device=CPU)
     assert torch.equal(graph.run(cam, 0), lba._solve_window(cam, BAProblem.from_numpy(windows[1], device=CPU)))
-    assert graph.graph is None and graph.replays == 0
+    assert graph.call.graph is None and graph.call.replays == 0
 
 
 @pytest.mark.cuda
@@ -383,18 +383,18 @@ def test_graph_replay_equals_the_eager_solve_over_a_session(cuda, session_npz, c
     graphed = lba.LocalBAState()
     prob, got = schedule(graphed)
     locs, quats = _locs(prob), _quats(prob)
-    assert sum(g.replays for g in graphed._graphs.values()) > 0
+    assert sum(g.call.replays for g in graphed._graphs.values()) > 0
     for _ in range(2):  # the last window's bucket run eagerly and captured, if the schedule has not yet
         lba.windowed_local_ba(prob, config, window=5, pipeline=True, state=graphed, device=cuda)
     graphed.flush()
     torch.cuda.synchronize()
-    replays = sum(g.replays for g in graphed._graphs.values())
+    replays = sum(g.call.replays for g in graphed._graphs.values())
     torch.cuda.set_sync_debug_mode("error")
     try:
         lba.windowed_local_ba(prob, config, window=5, pipeline=True, state=graphed, device=cuda)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert graphed.in_flight and sum(g.replays for g in graphed._graphs.values()) == replays + 1
+    assert graphed.in_flight and sum(g.call.replays for g in graphed._graphs.values()) == replays + 1
     assert graphed.flush()[0] == 3
 
     monkeypatch.setattr(lba.LocalBAState, "graph", lambda self, padded, device: None)

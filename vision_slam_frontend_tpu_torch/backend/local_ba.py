@@ -16,10 +16,11 @@ camera are held by a `LocalBAState` that the caller owns, one per session:
 nothing lives in module globals.
 
 On CUDA with a state, each capacity bucket of _pad_ba_for_device keeps the
-solve as a CUDA graph (`_SolveGraph`): the bucket's first window runs
-eagerly on the bucket's static inputs, its second is captured, and every
-later one is one replay, so a window's ~22,000 launches become one
-cudaGraphLaunch with the same kernels in the same order.
+solve's static inputs (`_SolveGraph`) and its CUDA graph, made by
+utils/cuda_graph.CapturedCall (layer `local_ba`): the bucket's first window
+runs eagerly, its second is captured, and every later one is one replay, so
+a window's ~22,000 launches become one cudaGraphLaunch with the same kernels
+in the same order.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from vision_slam_frontend_tpu_torch.types.slam_types import (
     VisionFactor,
     _field_dtype,
 )
+from vision_slam_frontend_tpu_torch.utils.cuda_graph import CapturedCall
 from vision_slam_frontend_tpu_torch.utils.device import resolve_device
 from vision_slam_frontend_tpu_torch.utils.profiling import span
 
@@ -246,10 +248,7 @@ class _SolveGraph:
         self.host = {name: t.numpy() for name, t in views(self.staging).items()}
         self.problem = BAProblem(**views(self.buffer))
         self.uploaded = None  # the CUDA event after the last copy out of the staging buffer
-        self.warm = False
-        self.graph = None
-        self.result = None
-        self.replays = 0
+        self.call = CapturedCall("local_ba")
 
     def upload(self, padded: dict) -> BAProblem:
         """A window of this bucket written into the static inputs: each
@@ -266,23 +265,9 @@ class _SolveGraph:
         return self.problem
 
     def run(self, cam: CameraParams, request) -> torch.Tensor:
-        """_solve_window on the static inputs: eager at the bucket's first
-        window, captured at its second, replayed from then on (the second
-        too). The result is the graph's static output, rewritten by the
-        next replay."""
-        if not self.warm:
-            self.warm = True
-            return _solve_window(cam, self.problem)
-        if self.graph is None:
-            with span("local_ba.capture", request):
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    self.result = _solve_window(cam, self.problem)
-                self.graph = graph
-        with span("local_ba.replay", request):
-            self.graph.replay()
-        self.replays += 1
-        return self.result
+        """_solve_window on the static inputs; from the bucket's second
+        window on, the graph's static output, rewritten by the next replay."""
+        return self.call(lambda: _solve_window(cam, self.problem), request)
 
 
 class _InFlight(NamedTuple):

@@ -2,8 +2,8 @@
 
 Same fields, defaults and derived matrices as the JAX package's
 FrontendConfig, computed with numpy, so the port runs where JAX is not
-installed. `load` and `save` read and write the JAX package's YAML through
-utils/yaml_subset.py, so they need no PyYAML: a config saved by either
+installed. `load` and `save` read and write YAML through PyYAML's
+`safe_load` / `safe_dump`, as the JAX package's do: a config saved by either
 package loads in the other.
 """
 
@@ -21,7 +21,6 @@ from vision_slam_frontend_tpu_torch.geometry.camera import (
     fundamental_from_stereo,
 )
 from vision_slam_frontend_tpu_torch.ops.descriptors import get_family
-from vision_slam_frontend_tpu_torch.utils import yaml_subset
 
 # Campus-Jackal Point Grey rig (the JAX package's DEFAULT_CALIB).
 DEFAULT_CALIB = {
@@ -112,7 +111,10 @@ class FrontendConfig:
     @classmethod
     def load(cls, path: str) -> "FrontendConfig":
         """Load config + calibration from YAML; missing keys keep defaults."""
-        data = yaml_subset.load(path) or {}
+        import yaml
+
+        with open(path) as f:
+            data = yaml.safe_load(f) or {}
         calib = data.pop("calib", None) or copy.deepcopy(DEFAULT_CALIB)
         fields = {f.name for f in dataclasses.fields(cls) if f.init}
         known = {k: v for k, v in data.items() if k in fields}
@@ -122,8 +124,10 @@ class FrontendConfig:
         return cls(calib=calib, **known)
 
     def save(self, path: str) -> None:
-        """Write every field and the calibration as YAML (the bytes
-        `yaml.safe_dump` writes for the JAX package's config)."""
+        """Write every field and the calibration as YAML."""
+        import yaml
+
         data = {f.name: getattr(self, f.name) for f in dataclasses.fields(self) if f.init and f.name != "calib"}
         data["calib"] = self.calib
-        yaml_subset.dump(data, path)
+        with open(path, "w") as f:
+            yaml.safe_dump(data, f)

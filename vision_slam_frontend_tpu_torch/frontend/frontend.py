@@ -20,17 +20,12 @@ the accumulation) are spans (utils/profiling.span) whose request is the
 keyframe's frame id.
 
 On CUDA the step is replayed from a CUDA graph, one per static key
-(`step_key`: the step's settings and the image shape). A key's first
-keyframe runs the eager step, which fills the per-device tables and loads
-the kernels outside any capture; its second is captured (a
-`keyframe.capture` span) and every keyframe from then on, that one
-included, replays the graph (a `keyframe.replay` span): a few input copies
-and one graph launch instead of thousands of kernel launches. The graph
-runs the same kernels in the same order, so its results equal the eager
-step's bit for bit. The window is the Frontend's own WindowState, into
-which every step copies its new window (`_step`), so the graphs read and
-write it and `_state` is always the current window. The CPU runs the eager
-step.
+(`step_key`: the step's settings and the image shape), made by
+utils/cuda_graph.CapturedCall (layer `keyframe`): a key's first keyframe
+steps eagerly, its second is captured and every keyframe from then on is
+one replay. The window is the Frontend's own WindowState, into which every
+step copies its new window (`_step`), so the graphs read and write it and
+`_state` is always the current window. The CPU runs the eager step.
 """
 
 from __future__ import annotations
@@ -50,7 +45,6 @@ from vision_slam_frontend_tpu_torch.frontend.keyframe import (
     keyframe_step,
 )
 from vision_slam_frontend_tpu_torch.io.serialize import arrays_to_problem, problem_to_arrays
-from vision_slam_frontend_tpu_torch.ops import cuda_kernels
 from vision_slam_frontend_tpu_torch.ops.descriptors import descriptor_dtype, get_family
 from vision_slam_frontend_tpu_torch.types.slam_types import (
     FeatureMatch,
@@ -63,6 +57,7 @@ from vision_slam_frontend_tpu_torch.types.slam_types import (
 )
 from vision_slam_frontend_tpu_torch.utils import np_geom
 from vision_slam_frontend_tpu_torch.utils.checks import check_keyframe_result
+from vision_slam_frontend_tpu_torch.utils.cuda_graph import CapturedCall
 from vision_slam_frontend_tpu_torch.utils.profiling import span
 
 # KeyframeResult fields the host accumulator reads.
@@ -87,39 +82,21 @@ def step_key(config: FrontendConfig, device, image_shape) -> tuple:
 
 class _StepGraph:
     """The keyframe step of one key as a CUDA graph: its static inputs (the
-    two images, the pose, the frame id), written before each step, and its
-    static outputs."""
+    two images, the pose, the frame id), written before each step."""
 
     def __init__(self, device: torch.device, image_shape):
         self.left = torch.empty(image_shape, dtype=torch.uint8, device=device)
         self.right = torch.empty_like(self.left)
         self.pose = torch.empty(7, dtype=torch.float32, device=device)
         self.frame_id = torch.zeros((), dtype=torch.int32, device=device)
-        self.warm = False
-        self.graph = None
-        self.result = None
-        self.kernels = {}  # hand-written kernel launches recorded in the graph
+        self.call = CapturedCall("keyframe")
 
     def run(self, step, frame_id: int) -> KeyframeResult:
-        """`step` on the static inputs: eager at the key's first keyframe,
-        captured at its second, replayed from then on (the second too)."""
-        if not self.warm:
-            self.warm = True
-            return step(self.left, self.right, self.pose, frame_id)
+        """`step` on the static inputs, the frame id written into its
+        device scalar first; the result is the graph's static output from
+        the key's second keyframe on."""
         self.frame_id.fill_(frame_id)
-        if self.graph is None:
-            with span("keyframe.capture", frame_id):
-                before = dict(cuda_kernels.CAPTURED)
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    self.result = step(self.left, self.right, self.pose, self.frame_id)
-                self.graph = graph
-                self.kernels = {k: n - before[k] for k, n in cuda_kernels.CAPTURED.items() if n > before[k]}
-        with span("keyframe.replay", frame_id):
-            self.graph.replay()
-            for k, n in self.kernels.items():
-                cuda_kernels.REPLAYED[k] += n
-        return self.result
+        return self.call(lambda: step(self.left, self.right, self.pose, self.frame_id), frame_id)
 
 
 class Frontend:

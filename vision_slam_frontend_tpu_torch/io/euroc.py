@@ -8,8 +8,7 @@ Layout:
       (t_ns, p_RS_R xyz, q_RS wxyz, ...) — used as the odometry stream.
 
 sensor.yaml carries radial-tangential distortion and T_BS (sensor-to-body);
-the right-camera extrinsic block is derived as T_cam1_cam0. It is read by
-utils/yaml_subset.py, which needs no PyYAML.
+the right-camera extrinsic block is derived as T_cam1_cam0.
 """
 
 from __future__ import annotations
@@ -21,11 +20,19 @@ from typing import Iterator
 import numpy as np
 
 from vision_slam_frontend_tpu_torch.io.image import load_gray, write_gray
-from vision_slam_frontend_tpu_torch.utils import yaml_subset
+
+
+def _read_sensor_yaml(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        text = f.read()
+    # EuRoC yamls start with "%YAML:1.0", which PyYAML refuses: drop directives.
+    return yaml.safe_load("\n".join(ln for ln in text.splitlines() if not ln.startswith("%")))
 
 
 def _cam_params(cam_dir: str) -> tuple:
-    s = yaml_subset.load(os.path.join(cam_dir, "sensor.yaml"))
+    s = _read_sensor_yaml(os.path.join(cam_dir, "sensor.yaml"))
     fu, fv, cu, cv_ = s["intrinsics"]
     dist = list(s.get("distortion_coefficients", [0, 0, 0, 0]))
     k1, k2, p1, p2 = (dist + [0, 0, 0, 0])[:4]

@@ -9,9 +9,9 @@ There is no other fallback.
 `LAUNCHES` counts kernel launches per wrapper (plain-version calls and calls
 captured into a CUDA graph do not count), so a run can show that its path
 went through the kernels. `CAPTURED` counts the calls recorded into CUDA
-graphs instead, and `REPLAYED` the kernels that replays of the Frontend's
-step graphs ran (each replay adds its graph's captured count); `runs()` is
-what ran either way.
+graphs instead, and `REPLAYED` the kernels that replays of graphs made by
+utils/cuda_graph.CapturedCall ran (each replay adds its graph's captured
+count); `runs()` is what ran either way.
 
 Kernels (source, TPU kernel replaced):
   fast_scores_nms  csrc/fast_nms.cu         pallas_kernels.fast_scores_nms
