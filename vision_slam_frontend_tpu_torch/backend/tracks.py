@@ -3,15 +3,17 @@ backend/tracks.py; numpy on the host, the same arrays as the JAX package's).
 
 A frontend's vision factors are pairwise match lists between poses; a bundle
 adjuster needs landmarks. This module chains the pairwise matches into
-tracks with a host-side union-find (transitive closure over (pose, feature)
-nodes), initializes each landmark from the first observation's triangulated
-stereo point lifted to the world frame, and emits the flat fixed-capacity
-BAProblem tensors the solver consumes, on the requested device.
+tracks (the connected components of the match graph over (pose, feature)
+keys, labelled in numpy array code over the whole problem), initializes each
+landmark from the first observation's triangulated stereo point lifted to
+the world frame, and emits the flat fixed-capacity BAProblem tensors the
+solver consumes, on the requested device. Only the one pass over the vision
+factors and the one over the nodes read Python objects.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -110,11 +112,12 @@ def build_ba_problem(
         pose o extrinsic).
       min_track_length: drop tracks observed fewer than this many times
         (single-observation landmarks don't constrain anything).
-      max_landmarks: optional cap, keeping the longest tracks.
+      max_landmarks: optional cap, keeping the longest tracks (their
+        lengths before the consistency filter).
       pad_to_multiple: pad capacities to static shapes.
       consistency_threshold: geometric track verification (metres; <= 0
         disables). Ratio-test survivors on self-similar texture still chain
-        FALSE matches into one union-find track (two different physical
+        FALSE matches into one track (two different physical
         points merged), which poisons BA far beyond what Huber/trimming can
         absorb. Each observation carries its own stereo-triangulated 3D
         point; lifting them to world through the (odometry) poses, a true
@@ -146,149 +149,84 @@ def build_ba_arrays(
 ) -> dict:
     """build_ba_problem's arrays in numpy ({field: array}, index fields
     int32, the JAX package's dtypes), before any upload; without the gather
-    tables when `gather_tables` is False (the scatter-form solves)."""
-    uf = _UnionFind()
-    for f in problem.vision_factors:
-        for m in f.feature_matches:
-            uf.union(
-                (f.pose_idx_initial, m.feature_idx_initial),
-                (f.pose_idx_current, m.feature_idx_current),
-            )
+    tables when `gather_tables` is False (the scatter-form solves).
 
-    # Collect observations per track root.
-    tracks: dict = {}
+    Array code over the whole problem: one pass over the vision factors reads
+    the matches, one over the nodes reads the features; tracks are the
+    connected components of the match graph, and the consistency filter,
+    observations and landmark points are segment-wise array operations, each
+    computing what the JAX package's per-track and per-observation code does
+    in the same float64 operations, so the arrays equal its bit for bit."""
     node_by_id = {n.node_idx: n for n in problem.nodes}
-    for f in problem.vision_factors:
-        for m in f.feature_matches:
-            for key in (
-                (f.pose_idx_initial, m.feature_idx_initial),
-                (f.pose_idx_current, m.feature_idx_current),
-            ):
-                root = uf.find(key)
-                tracks.setdefault(root, set()).add(key)
-
-    track_list = [sorted(obs) for obs in tracks.values() if len(obs) >= min_track_length]
-    # Longest tracks first (most informative), deterministic tie-break.
-    track_list.sort(key=lambda t: (-len(t), t[0]))
-
-    pose_ids = np.array(sorted(node_by_id), np.int64)
-    pose_row = {pid: i for i, pid in enumerate(pose_ids)}
-    P = len(pose_ids)
-
     if left_cam_to_robot is None:
         left_cam_to_robot = np.eye(4)
     R_cr = left_cam_to_robot[:3, :3]
     t_cr = left_cam_to_robot[:3, 3]
+    nodes = _read_nodes(node_by_id, R_cr, t_cr)
+    P = len(nodes.ids)
 
-    # World points for ALL of a node's features in one batched matmul, not
-    # one quat_rotate per observation (local BA calls this per keyframe).
-    _world_cache: dict = {}
+    # Keys (pose, feature) as codes that ascend as the tuples do; a track is
+    # a component of the graph whose edges are the matches.
+    key_pose, key_feat = _read_matches(problem.vision_factors)
+    pose_vals, pose_code = np.unique(key_pose, return_inverse=True)
+    feat_vals, feat_code = np.unique(key_feat, return_inverse=True)
+    n_feat_vals = max(len(feat_vals), 1)
+    codes, ends = np.unique(pose_code * n_feat_vals + feat_code, return_inverse=True)
+    E = len(key_pose) // 2
+    labels = _components(ends[:E], ends[E:], len(codes))
 
-    def _node_world(node):
-        if id(node) not in _world_cache:
-            if not node.features:
-                _world_cache[id(node)] = (np.zeros((0, 3)), np.zeros(0, bool))
-            else:
-                p3 = np.stack(
-                    [np.asarray(f.point3d, np.float64) for f in node.features]
-                )
-                ok = np.all(np.isfinite(p3), axis=1) & (p3[:, 2] > 0.05)
-                q = np_geom.quat_normalize(np.asarray(node.pose.angle, np.float64))
-                w, x, y, z = q
-                R = np.array([
-                    [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-                    [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-                    [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-                ])
-                pts = (np.nan_to_num(p3) @ R_cr.T + t_cr) @ R.T + np.asarray(
-                    node.pose.loc, np.float64
-                )
-                _world_cache[id(node)] = (pts, ok)
-        return _world_cache[id(node)]
+    # Tracks longest first, then by first key (a component's label is its
+    # first key); `slots` lists their keys by (track, key).
+    size = np.bincount(labels, minlength=len(codes))
+    roots = np.flatnonzero(labels == np.arange(len(codes)))
+    roots = roots[size[roots] >= min_track_length]
+    ranked = roots[np.lexsort((roots, -size[roots]))]
+    T = len(ranked)
+    rank = np.full(len(codes), -1)
+    rank[ranked] = np.arange(T)
+    slots = np.flatnonzero(rank[labels] >= 0)
+    slots = slots[np.argsort(rank[labels[slots]], kind="stable")]
+    track = rank[labels[slots]]
 
-    def world_point(pose_id, feat_idx):
-        node = node_by_id.get(pose_id)
-        if node is None or feat_idx >= len(node.features):
-            return None
-        pts, ok = _node_world(node)
-        return pts[feat_idx] if ok[feat_idx] else None
+    # Each key's node row and feature row (the sentinels where it names none).
+    pose = pose_vals[codes[slots] // n_feat_vals]
+    feat = feat_vals[codes[slots] % n_feat_vals]
+    row = np.searchsorted(nodes.ids, pose)
+    found = row < P
+    found[found] = nodes.ids[row[found]] == pose[found]
+    row[~found] = P
+    on_node = (feat >= 0) & (feat < nodes.count[row])
+    fi = np.where(on_node, nodes.start[row] + feat, -1)
 
+    keep = np.ones(len(slots), bool)
+    survives = np.ones(T, bool)
     if consistency_threshold > 0:
-        filtered = []
-        for track in track_list:
-            pts, keys = [], []
-            for key in track:
-                w = world_point(*key)
-                if w is not None:
-                    pts.append(w)
-                    keys.append(key)
-            if len(pts) < 2:
-                # No geometric evidence either way (features without finite
-                # stereo triangulations): absence of evidence is not
-                # inconsistency — keep the track as-is; BA estimates the
-                # landmark from the pixels regardless.
-                filtered.append(track)
-                continue
-            if len(pts) < min_track_length:
-                continue
-            pts = np.stack(pts)
-            med = np.median(pts, axis=0)
-            d = np.linalg.norm(pts - med, axis=1)
-            node0 = node_by_id[keys[0][0]]
-            depth = np.linalg.norm(med - np.asarray(node0.pose.loc, np.float64))
-            thr = consistency_threshold * max(1.0, depth / 5.0)
-            # Keep consistent observations; at most one per pose (a
-            # union-find track with two features in the SAME pose is a
-            # guaranteed false merge — keep the one nearest the median).
-            best: dict = {}
-            for i, key in enumerate(keys):
-                if d[i] > thr:
-                    continue
-                pid = key[0]
-                if pid not in best or d[i] < d[best[pid]]:
-                    best[pid] = i
-            sel = sorted(keys[i] for i in best.values())
-            if len(sel) >= min_track_length:
-                filtered.append(sel)
-        track_list = filtered
-
+        keep, survives = _consistency_filter(track, row, fi, nodes, T, consistency_threshold, min_track_length)
     if max_landmarks is not None:
-        track_list = track_list[:max_landmarks]
+        # The cut ranks by each track's length before the filter.
+        kept = np.zeros(T, bool)
+        kept[np.flatnonzero(survives)[:max_landmarks]] = True
+        survives = kept
+    keep &= survives[track]
+
     # Landmark ids in first-observed-pose order (the JAX package's order:
     # frontend tracks are pose-local, and its banded coupling plan keys off
     # this; the landmark ids must match it).
-    track_list.sort(key=lambda t: t[0])
+    ks = np.flatnonzero(keep)
+    firsts = ks[_run_heads(track[ks])]
+    L = len(firsts)
+    lid = np.zeros(T, np.int64)
+    lid[track[firsts[np.argsort(slots[firsts])]]] = np.arange(L)
+    ks = ks[np.argsort(lid[track[ks]], kind="stable")]
+    obs = ks[on_node[ks]]
+    N = len(obs)
 
-    obs_pose, obs_landmark, obs_pixel = [], [], []
-    obs_pixel_right, obs_right = [], []
-    landmarks = []
-    for lid, track in enumerate(track_list):
-        init = None
-        for pose_id, feat_idx in track:
-            node = node_by_id.get(pose_id)
-            if node is None or feat_idx >= len(node.features):
-                continue
-            feat = node.features[feat_idx]
-            obs_pose.append(pose_row[pose_id])
-            obs_landmark.append(lid)
-            obs_pixel.append(np.asarray(feat.pixel, np.float64))
-            pr = getattr(feat, "pixel_right", None)
-            if pr is not None and np.all(np.isfinite(pr)):
-                obs_pixel_right.append(np.asarray(pr, np.float64))
-                obs_right.append(True)
-            else:
-                obs_pixel_right.append(np.zeros(2))
-                obs_right.append(False)
-            if init is None and np.all(np.isfinite(feat.point3d)) and feat.point3d[2] > 0.05:
-                # Lift the stereo-triangulated camera-frame point to world:
-                # world = pose o (cam->robot) applied to point3d.
-                p_robot = R_cr @ np.asarray(feat.point3d, np.float64) + t_cr
-                q = np.asarray(node.pose.angle, np.float64)
-                init = np_geom.quat_rotate(q, p_robot) + np.asarray(node.pose.loc, np.float64)
-        landmarks.append(init if init is not None else np.zeros(3))
-
-    L = len(landmarks)
-    N = len(obs_pose)
+    # Each landmark starts at its first observation with a lift-able stereo
+    # point: world = pose o (cam->robot) applied to point3d.
+    landmarks = np.zeros((L, 3))
+    lifts = obs[nodes.lift_ok[fi[obs]]]
+    lifts = lifts[_run_heads(track[lifts])]
+    landmarks[lid[track[lifts]]] = _lift(nodes, row[lifts], fi[lifts], R_cr, t_cr)
 
     def cap(n):
         m = pad_to_multiple
@@ -300,18 +238,14 @@ def build_ba_arrays(
     poses_q = np.zeros((Pc, 4), np.float32)
     poses_q[:, 0] = 1.0
     pose_mask = np.zeros(Pc, bool)
-    for pid in pose_ids:
-        i = pose_row[pid]
-        node = node_by_id[pid]
-        poses_t[i] = node.pose.loc
-        poses_q[i] = node.pose.angle
-        pose_mask[i] = True
+    poses_t[:P] = nodes.loc[:P]
+    poses_q[:P] = nodes.angle[:P]
+    pose_mask[:P] = True
 
     lm = np.zeros((Lc, 3), np.float32)
     lm_mask = np.zeros(Lc, bool)
-    if L:
-        lm[:L] = np.stack(landmarks)
-        lm_mask[:L] = True
+    lm[:L] = landmarks
+    lm_mask[:L] = True
 
     op = np.zeros(Nc, np.int32)
     ol = np.zeros(Nc, np.int32)
@@ -319,14 +253,14 @@ def build_ba_arrays(
     omask = np.zeros(Nc, bool)
     opix_r = np.zeros((Nc, 2), np.float32)
     omask_r = np.zeros(Nc, bool)
-    if N:
-        op[:N] = obs_pose
-        ol[:N] = obs_landmark
-        opix[:N] = np.stack(obs_pixel)
-        omask[:N] = True
-        opix_r[:N] = np.stack(obs_pixel_right)
-        omask_r[:N] = obs_right
+    op[:N] = row[obs]
+    ol[:N] = lid[track[obs]]
+    opix[:N] = nodes.pixel[fi[obs]]
+    omask[:N] = True
+    opix_r[:N] = nodes.pixel_right[fi[obs]]
+    omask_r[:N] = nodes.right_ok[fi[obs]]
 
+    pose_row = {pid: i for i, pid in enumerate(nodes.ids.tolist())}
     Q = len(problem.odometry_factors)
     Qc = max(1, Q)
     oi = np.zeros(Qc, np.int32)
@@ -365,3 +299,178 @@ def build_ba_arrays(
         tables = build_gather_tables(op, ol, omask, Pc, Lc)
         arrays.update(zip(("pose_obs", "pose_obs_mask", "lm_obs", "lm_obs_mask"), tables))
     return arrays
+
+
+class _Nodes(NamedTuple):
+    """A problem's nodes in node-id order, their features' rows laid end to
+    end (node i's are rows start[i] to start[i] + count[i]). Each table ends
+    in a sentinel row, node P with no features and feature row -1: a key that
+    names no node, or no feature of its node, reads those."""
+
+    ids: np.ndarray  # (P,) sorted node ids
+    loc: np.ndarray  # (P + 1, 3) float64
+    angle: np.ndarray  # (P + 1, 4) float64, as stored (not normalised)
+    start: np.ndarray  # (P + 1,)
+    count: np.ndarray  # (P + 1,)
+    pixel: np.ndarray  # (F + 1, 2) float64
+    pixel_right: np.ndarray  # (F + 1, 2) float64, zero where there is none
+    right_ok: np.ndarray  # (F + 1,) a finite right pixel
+    point3d: np.ndarray  # (F + 1, 3) float64
+    lift_ok: np.ndarray  # (F + 1,) point3d finite and z > 0.05, compared in its own dtype
+    world: np.ndarray  # (F + 1, 3) float64 world points
+    world_ok: np.ndarray  # (F + 1,) point3d finite and z > 0.05, compared in float64
+
+
+_NO_RIGHT = np.full(2, np.nan)
+_SENTINEL = dict(pixel=np.zeros((1, 2)), pixel_right=np.zeros((1, 2)), right_ok=np.zeros(1, bool),
+                 point3d=np.zeros((1, 3)), lift_ok=np.zeros(1, bool), world=np.zeros((1, 3)),
+                 world_ok=np.zeros(1, bool))
+
+
+def _read_nodes(node_by_id: dict, R_cr: np.ndarray, t_cr: np.ndarray) -> _Nodes:
+    """The one pass over the nodes: each node's pose and its features'
+    pixels, right pixels and stereo points, and those points lifted to the
+    world frame in one batched matmul per node (the JAX package's
+    `_node_world`, float64)."""
+    ids = sorted(node_by_id)
+    locs, angles, counts = [], [], []
+    cols = {k: [] for k in _SENTINEL}
+    for nid in ids:
+        node = node_by_id[nid]
+        feats = node.features
+        n = len(feats)
+        loc = np.asarray(node.pose.loc, np.float64)
+        angle = np.asarray(node.pose.angle, np.float64)
+        locs.append(loc)
+        angles.append(angle)
+        counts.append(n)
+        if not n:
+            continue
+        cols["pixel"].append(np.concatenate([f.pixel for f in feats]).reshape(n, 2).astype(np.float64))
+        right = np.concatenate([_NO_RIGHT if f.pixel_right is None else f.pixel_right for f in feats])
+        right = right.reshape(n, 2).astype(np.float64)
+        right_ok = np.all(np.isfinite(right), axis=1)
+        right[~right_ok] = 0.0
+        cols["pixel_right"].append(right)
+        cols["right_ok"].append(right_ok)
+        raw = np.concatenate([f.point3d for f in feats]).reshape(n, 3)
+        p3 = raw.astype(np.float64)
+        cols["point3d"].append(p3)
+        cols["lift_ok"].append(np.all(np.isfinite(raw), axis=1) & (raw[:, 2] > 0.05))
+        cols["world_ok"].append(np.all(np.isfinite(p3), axis=1) & (p3[:, 2] > 0.05))
+        w, x, y, z = np_geom.quat_normalize(angle)
+        R = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ])
+        cols["world"].append((np.nan_to_num(p3) @ R_cr.T + t_cr) @ R.T + loc)
+    counts = np.array(counts + [0], np.int64)
+    return _Nodes(
+        ids=np.array(ids, np.int64),
+        loc=np.stack(locs + [np.zeros(3)]),
+        angle=np.stack(angles + [np.zeros(4)]),
+        start=np.concatenate([[0], np.cumsum(counts)[:-1]]),
+        count=counts,
+        **{k: np.concatenate(v + [_SENTINEL[k]]) for k, v in cols.items()},
+    )
+
+
+def _read_matches(factors) -> tuple:
+    """The one pass over the vision factors: every match's two (pose,
+    feature) keys, the initial ends then the current ends, as (pose ids,
+    feature indices), each of length 2E."""
+    initial, current, poses, counts = [], [], [], []
+    for f in factors:
+        ms = f.feature_matches
+        initial += [m.feature_idx_initial for m in ms]
+        current += [m.feature_idx_current for m in ms]
+        poses.append((f.pose_idx_initial, f.pose_idx_current))
+        counts.append(len(ms))
+    poses = np.repeat(np.array(poses, np.int64).reshape(-1, 2), counts, axis=0)
+    return poses.T.reshape(-1), np.array(initial + current, np.int64)
+
+
+def _components(a: np.ndarray, b: np.ndarray, n: int) -> np.ndarray:
+    """Connected components of the graph on vertices 0..n-1 with edges
+    (a[i], b[i]): each vertex's label is the smallest vertex of its
+    component. Min-label propagation over the edges, each end's root taking
+    the other end's label, then pointer jumping until every vertex points at
+    a root; until a round changes nothing (labels only fall, label[v] <= v).
+    Hooking roots rather than ends takes O(log n) rounds, not the diameter."""
+    labels = np.arange(n)
+    while True:
+        before = labels.copy()
+        np.minimum.at(labels, labels[a], labels[b])
+        np.minimum.at(labels, labels[b], labels[a])
+        jumped = labels[labels]
+        while not np.array_equal(jumped, labels):
+            labels, jumped = jumped, jumped[jumped]
+        if np.array_equal(labels, before):
+            return labels
+
+
+def _run_heads(*cols: np.ndarray) -> np.ndarray:
+    """True where a run of equal rows of the (sorted) columns starts."""
+    head = np.zeros(len(cols[0]), bool)
+    head[:1] = True
+    for c in cols:
+        head[1:] |= c[1:] != c[:-1]
+    return head
+
+
+def _consistency_filter(track, row, fi, nodes: _Nodes, T: int, threshold: float, min_track_length: int):
+    """Geometric track verification over all tracks at once (see
+    build_ba_problem's `consistency_threshold`). `track`, `row` and `fi`
+    give each key's track, node row and feature row, by (track, key).
+
+    A track with fewer than two world points is kept whole, one with fewer
+    than `min_track_length` is dropped; in the others, a point farther than
+    threshold * max(1, depth / 5) from the track's component-wise median is
+    dropped, and of each pose's points the nearest is kept (the earlier key
+    on a tie, as a strict `<` over the keys in order keeps it). Returns
+    (keep per key, survives per track)."""
+    has_pt = nodes.world_ok[fi]
+    n_pts = np.bincount(track[has_pt], minlength=T)
+    checked = (n_pts >= 2) & (n_pts >= min_track_length)
+    v = np.flatnonzero(has_pt & checked[track])
+    pts = nodes.world[fi[v]]
+    starts = np.flatnonzero(_run_heads(track[v]))
+    n = np.diff(np.r_[starts, len(v)])
+    seg = np.repeat(np.arange(len(starts)), n)
+    # np.median itself, over the tracks of each point count at once.
+    med = np.empty((len(starts), 3))
+    for count in np.unique(n):
+        tr = np.flatnonzero(n == count)
+        med[tr] = np.median(pts[starts[tr, None] + np.arange(count)], axis=1)
+    d = np.linalg.norm(pts - med[seg], axis=1)
+    # np.linalg.norm of one 3-vector is sqrt(x.dot(x)); a (1, 3) @ (3, 1)
+    # matmul takes the same dot, so the `d > thr` comparisons equal its.
+    off = med - nodes.loc[row[v[starts]]]
+    depth = np.sqrt(np.matmul(off[:, None, :], off[:, :, None])[:, 0, 0])
+    scale = depth / 5.0
+    thr = threshold * np.where(scale > 1.0, scale, 1.0)
+    cand = np.flatnonzero(~(d > thr[seg]))
+    # A track's keys of one pose are consecutive: keep the nearest of each
+    # run, the first on a tie. A strict `<` never replaces a NaN distance
+    # that comes first, and never takes a later one: fmin passes over NaN.
+    head = _run_heads(seg[cand], row[v[cand]])
+    dist = np.where(head & np.isnan(d[cand]), -np.inf, d[cand])
+    run = np.cumsum(head) - 1
+    nearest = np.flatnonzero(dist == np.fmin.reduceat(dist, np.flatnonzero(head))[run]) if len(cand) else cand
+    best = v[cand[nearest[_run_heads(run[nearest])]]]
+    n_sel = np.bincount(track[best], minlength=T)
+    survives = (n_pts < 2) | (checked & (n_sel >= max(min_track_length, 1)))  # never an emptied track
+    keep = (n_pts < 2)[track]
+    keep[best] = survives[track[best]]
+    return keep, survives
+
+
+def _lift(nodes: _Nodes, row: np.ndarray, fi: np.ndarray, R_cr: np.ndarray, t_cr: np.ndarray) -> np.ndarray:
+    """Stereo points to world points, row-wise in np_geom.quat_rotate's
+    arithmetic with each node's stored (unnormalised) quaternion. R_cr @ p
+    is one matrix-vector product per point, as the per-point code takes it."""
+    p_robot = np.matmul(R_cr, nodes.point3d[fi][:, :, None])[:, :, 0] + t_cr
+    w, u = nodes.angle[row, :1], nodes.angle[row, 1:]
+    uv = np.cross(u, p_robot)
+    return p_robot + 2.0 * (w * uv + np.cross(u, uv)) + nodes.loc[row]
